@@ -1,0 +1,88 @@
+"""The CUDA kernel ``colmerge_top2`` against its plain PyTorch version and
+the NumPy spec, on the card.  Marked ``gpu``: each test skips without a CUDA
+device.  Run on the card with
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+
+This file imports no JAX (the machine with the card has none); its seeded
+cases are shared with ``test_torch_hopper_matcher.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
+from fqtk_tpu_torch.ops import hopper_matcher as hm
+from fqtk_tpu_torch.ops.device_encoding import pack_bit2
+
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def whitelist_case(rng, k, length, b, iupac=True):
+    """Distinct ACGT barcodes (two IUPAC entries), reads with a third planted
+    exact matches and a sixth one mismatch away."""
+    barcodes = set()
+    while len(barcodes) < k:
+        barcodes.add(bytes(rng.choice(ACGT, size=length)).decode())
+    barcodes = sorted(barcodes)
+    if iupac and k > 7:
+        barcodes[3] = barcodes[3][:2] + "N" + barcodes[3][3:]
+        barcodes[7] = "R" + barcodes[7][1:]
+    es = ExpectedSet.from_barcodes(barcodes)
+    obs = rng.choice(ACGT, size=(b, length)).astype(np.uint8)
+    for i in range(0, b, 3):
+        bc = barcodes[(i * 7) % k].replace("N", "G").replace("R", "A")
+        obs[i] = np.frombuffer(bc.encode(), dtype=np.uint8)
+    for i in range(1, b, 6):
+        obs[i] = obs[i - 1]
+        obs[i, i % length] = ACGT[(np.searchsorted(ACGT, obs[i, i % length]) + 1) % 4]
+    return es, obs
+
+
+def spec(obs, es, mm, delta):
+    idx, best, nxt = assign_batch_np(obs, es, mm, delta)
+    return np.where(idx < 0, es.count, idx), best, nxt
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; run with -m gpu on the card)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "k,length,b",
+    [(1, 8, 100), (96, 17, 4096), (300, 12, 1000), (8192, 16, 2000), (40, 33, 777)],
+)
+def test_kernel_matches_plain_on_card(k, length, b):
+    _need_card()
+    rng = np.random.default_rng(k + b)
+    es, obs = whitelist_case(rng, k=k, length=length, b=b)
+    state = hm.hopper_state_from_numpy(es, "cuda")
+    packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    kern = hm.ColmergeTop2()
+    got = kern(packed, state.compat, k, length)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and kern.plain_calls == 0
+    want = hm.colmerge_top2_reference(packed, state.compat, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, s_best, s_next = spec(obs, es, 1, 2)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), s_best)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm,delta", [(1, 2), (0, 0)])
+def test_assign_fn_on_card(mm, delta):
+    """numpy bit2 in -> gated (assigned, best, next) on the card, as the demux
+    driver calls it; one kernel launch per call."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    es, obs = whitelist_case(rng, k=96, length=17, b=5000)
+    fn = hm.make_hopper_assign_fn(es, mm, delta, device="cuda")
+    got = [t.cpu().numpy() for t in fn(pack_bit2(obs))]
+    assert fn.launches == 1 and fn.plain_calls == 0
+    assert got[0].dtype == np.uint8
+    for g, w in zip(got, spec(obs, es, mm, delta)):
+        np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
