@@ -1,6 +1,7 @@
 """Smoke run of fqtk_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version at the main path's shapes, and
-drives device-placed ``demux`` end to end through the CLI.
+holds each against its plain PyTorch version at the main paths' shapes, and
+drives device-placed ``demux`` end to end through the CLI and the
+single-cell whitelist window through the matcher.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,28 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 
 1. device  — the card's name and power limit; no CUDA device raises.
 2. build   — the host I/O engine (when the committed binary does not load)
-             and the CUDA kernels from ``fqtk_tpu_torch/csrc/``.
-3. kernels — ``colmerge_top2`` against ``colmerge_top2_reference`` bit for
-             bit at K = 96 / 8,192 / 737,280, with median times of both.
+             and the CUDA kernels from ``fqtk_tpu_torch/csrc/`` (one nvcc
+             per source, all started together).
+3. kernels — ``colmerge_top2`` and ``tile_top2`` against their plain
+             versions bit for bit at K = 96 / 8,192 / 737,280, with median
+             times of all four; each kernel on a state built for it (the
+             table it reads).
 4. demux   — a 2,000,000-read dual-index paired-end run with 96 samples
              through ``python -m fqtk_tpu_torch.cli demux --matcher device
-             --device cuda``; the kernel must have been launched, and every
-             decompressed output and ``demux-metrics.txt`` must equal the C++
-             host matcher's run (``--matcher host``) byte for byte; the
-             per-sample counts must equal those implied by the generator.
+             --device cuda``; ``colmerge_top2`` must have been launched, and
+             every decompressed output and ``demux-metrics.txt`` must equal
+             the C++ host matcher's run (``--matcher host``) byte for byte;
+             the per-sample counts must equal those implied by the generator.
+5. single-cell whitelist — a seeded whitelist of 6,794,880 distinct 16-bp
+             barcodes (the size of 10x Genomics' 3M-february-2018 list):
+             ``tile_top2`` against its plain version bit for bit at
+             B = 16,384 and 16,347 (uniform reads, 10% with a random base),
+             then one 131,072-read window clustered on 8,000 cells through
+             the port's window dedup and ``make_hopper_assign_fn``, which
+             must pick ``tile_top2`` on its own and launch it
+             (no plain call, no ``colmerge_top2`` launch); ``assigned`` must
+             equal the plain version's gated result on the same rows and the
+             C++ pigeonhole host matcher's.
 
 The second-to-last line is the card as ``nvidia-smi`` names it, preceded by
 a ``{"kernels": [...]}`` line; the last line is
@@ -46,8 +60,14 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "fqtk_tpu_torch" / "smoke"
 LOGS = ROOT / "build" / "fqtk_tpu_torch" / "smoke_logs"
 
-KERNEL_SOURCE = "fqtk_tpu_torch/csrc/colmerge_top2.cu"
-REPLACES = "fqtk_tpu/ops/pallas_matcher.py:373"  # kernel_colmerge (run_kernel :444)
+#: name -> (source, the TPU kernel it replaces; both launched by run_kernel's
+#: pl.pallas_call at pallas_matcher.py:462)
+KERNELS = {
+    "colmerge_top2": ("fqtk_tpu_torch/csrc/colmerge_top2.cu",
+                      "fqtk_tpu/ops/pallas_matcher.py:373"),  # kernel_colmerge
+    "tile_top2": ("fqtk_tpu_torch/csrc/tile_top2.cu",
+                  "fqtk_tpu/ops/pallas_matcher.py:285"),  # kernel (per-step)
+}
 
 #: phase 3 shapes (K, L, B): at 96 samples the window dedup's bucket (what
 #: phase 4 launches: ~4.7K unique rows per 131,072-read window -> 8,192) and
@@ -125,49 +145,77 @@ def cuda_median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(card: str) -> dict:
+def compare(name: str, got, want, where: str) -> int:
+    """Max abs difference of two (best, idx, next) triples; raises unless
+    they are equal."""
+    err = 0
+    for field, g, w in zip(("best", "idx", "next"), got, want):
+        err = max(err, int((g.long() - w.long()).abs().max().item()))
+        if not torch.equal(g, w):
+            bad = int((g != w).nonzero()[0, 0])
+            raise AssertionError(
+                f"{name} != plain at {where}: {field}[{bad}] kernel "
+                f"{int(g[bad])} plain {int(w[bad])}"
+            )
+    return err
+
+
+def kernel_runs():
+    """name -> (kernel call, plain call), each ``f(obs, state)`` on a state
+    built for that kernel.  The wrappers have their own counters: these
+    launches are not a main path's."""
     from fqtk_tpu_torch.ops.hopper_matcher import (
         ColmergeTop2,
+        TileTop2,
         colmerge_top2_reference,
-        hopper_state_from_numpy,
+        tile_top2_reference,
     )
 
-    kern = ColmergeTop2()  # its own counter: these launches are not the main path's
-    results = []
-    max_err = 0
+    colm, tile = ColmergeTop2(), TileTop2()
+    return {
+        "colmerge_top2": (
+            lambda o, st: colm(o, st.table, st.k, st.length),
+            lambda o, st: colmerge_top2_reference(o, st.table, st.k, st.length),
+        ),
+        "tile_top2": (
+            lambda o, st: tile(o, st.table, st.k, st.length),
+            lambda o, st: tile_top2_reference(o, st.table, st.k, st.length),
+        ),
+    }
+
+
+def phase_kernels(card: str) -> dict:
+    from fqtk_tpu_torch.ops.hopper_matcher import hopper_state_from_numpy
+
+    runs = kernel_runs()
+    shapes = {name: [] for name in runs}
+    max_err = {name: 0 for name in runs}
     for i, (k, length, b) in enumerate(KERNEL_SHAPES):
         es, packed = kernel_case(k, length, b, seed=1000 + i)
-        state = hopper_state_from_numpy(es, "cuda")
         obs = torch.from_numpy(packed).cuda()
-        # a ragged B (not a multiple of any row tile) for exactness too
-        for rows in (b, b - 37):
-            o = obs[:rows].contiguous()
-            got = kern(o, state.compat, k, length)
-            want = colmerge_top2_reference(o, state.compat, k, length)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("best", "idx", "next"), got, want):
-                err = int((g.long() - w.long()).abs().max().item())
-                max_err = max(max_err, err)
-                if not torch.equal(g, w):
-                    bad = int((g != w).nonzero()[0, 0])
-                    raise AssertionError(
-                        f"colmerge_top2 != plain at K={k} L={length} B={rows}: "
-                        f"{name}[{bad}] kernel {int(g[bad])} plain {int(w[bad])}"
-                    )
-        reps = 5 if k > 10_000 else 20
-        ms = cuda_median_ms(lambda: kern(obs, state.compat, k, length), reps)
-        plain_ms = cuda_median_ms(
-            lambda: colmerge_top2_reference(obs, state.compat, k, length), reps
-        )
-        results.append(dict(k=k, length=length, b=b, ms=ms, plain_ms=plain_ms))
-        log(
-            f"[kernels] K={k} L={length} B={b}: colmerge_top2 {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (median of {reps}; {card}); "
-            f"{b / ms / 1e3:.1f}M rows/s kernel, {b / plain_ms / 1e3:.1f}M rows/s plain"
-        )
-        del state, obs
+        for name, (kernel, plain) in runs.items():
+            state = hopper_state_from_numpy(es, "cuda", name)
+            # a ragged B (not a multiple of any row tile) for exactness too
+            for rows in (b, b - 37):
+                o = obs[:rows].contiguous()
+                got = kernel(o, state)
+                want = plain(o, state)
+                torch.cuda.synchronize()
+                err = compare(name, got, want, f"K={k} L={length} B={rows}")
+                max_err[name] = max(max_err[name], err)
+            reps = 5 if k > 10_000 else 20
+            ms = cuda_median_ms(lambda: kernel(obs, state), reps)
+            plain_ms = cuda_median_ms(lambda: plain(obs, state), reps)
+            shapes[name].append(dict(k=k, length=length, b=b, ms=ms, plain_ms=plain_ms))
+            log(
+                f"[kernels] K={k} L={length} B={b}: {name} {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms (median of {reps}; {card}); "
+                f"{b / ms / 1e3:.1f}M rows/s kernel, {b / plain_ms / 1e3:.1f}M rows/s plain"
+            )
+            del state
+        del obs
         torch.cuda.empty_cache()
-    return dict(shapes=results, max_abs_err=max_err)
+    return dict(shapes=shapes, max_abs_err=max_err)
 
 
 # --------------------------------------------------------------------------
@@ -347,6 +395,194 @@ def phase_demux(card: str, work: Path, n_reads: int, device: str) -> dict:
     return dict(launches=launches, reads_per_s=rate, pipeline_s=pipe_s, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# phase 5: the single-cell whitelist path
+# --------------------------------------------------------------------------
+
+SC_K = 6_794_880  # barcodes in 10x Genomics' 3M-february-2018.txt
+SC_L = 16
+SC_KERNEL_B = 16_384
+SC_WINDOW = 131_072  # one production window (DEFAULT_BATCH_SIZE)
+SC_CELLS = 8_000
+SC_ORACLE_ROWS = 1_024  # the NumPy spec's rows if the host matcher refuses
+
+
+def single_cell_whitelist(seed: int):
+    """``SC_K`` distinct seeded 16-bp ACGT barcodes as 2-bit codes
+    ``[K, 16]`` and their ``ExpectedSet``, built from masks (no strings)."""
+    from fqtk_tpu_torch.ops.matcher import ExpectedSet
+
+    rng = np.random.default_rng(seed)
+    draw = rng.integers(0, 1 << 32, size=SC_K + SC_K // 64, dtype=np.uint64)
+    vals = rng.permutation(np.unique(draw))[:SC_K]  # distinct 32-bit values
+    if len(vals) != SC_K:
+        raise AssertionError(f"only {len(vals)} distinct barcodes drawn")
+    codes = np.empty((SC_K, SC_L), dtype=np.uint8)
+    for j in range(SC_L):
+        codes[:, j] = (vals >> np.uint64(2 * j)) & np.uint64(3)
+    masks = np.left_shift(1, codes).astype(np.uint8)  # A,C,G,T -> 1,2,4,8
+    es = ExpectedSet(masks=masks, max_ns_in_barcodes=0, length=SC_L, count=SC_K)
+    return es, codes
+
+
+def single_cell_reads(rng, codes, b: int, cells=None) -> np.ndarray:
+    """bench.py's recipe (config #4): reads drawn uniformly from the whitelist,
+    or from ``cells`` of its barcodes; 10% get a random base at a random
+    position.  Returns 2-bit codes ``[b, 16]``."""
+    if cells is None:
+        rows = rng.integers(0, len(codes), size=b)
+    else:
+        rows = rng.integers(0, len(codes), size=cells)[rng.integers(0, cells, size=b)]
+    obs = codes[rows]
+    mut = rng.integers(0, 10, size=b) == 0
+    pos = rng.integers(0, SC_L, size=b)
+    obs[mut, pos[mut]] = rng.integers(0, 4, size=int(mut.sum()))
+    return obs
+
+
+def host_oracle(codes: np.ndarray, es, window: np.ndarray):
+    """The C++ pigeonhole matcher ``--matcher auto`` picks at this K (built as
+    bench.py builds it) on the whole window; where it refuses the whitelist,
+    the NumPy spec on the first ``SC_ORACLE_ROWS`` rows, one at a time.
+    Returns (assigned rows, how many, which oracle)."""
+    from fqtk_tpu_torch.ops.matcher import (
+        NativeBigKMatcher,
+        NativeDemuxError,
+        assign_batch_np,
+    )
+
+    t0 = time.perf_counter()
+    text = ACGT[codes].tobytes().decode()
+    barcodes = [text[i * SC_L:(i + 1) * SC_L] for i in range(len(codes))]
+    del text
+    try:
+        matcher = NativeBigKMatcher(barcodes, 1, 2, threads=4)
+    except NativeDemuxError as e:
+        log(f"[single-cell] NativeBigKMatcher refused the whitelist ({e}); "
+            f"NumPy spec on the first {SC_ORACLE_ROWS} rows")
+        obs = ACGT[window[:SC_ORACLE_ROWS]]
+        out = np.empty(SC_ORACLE_ROWS, dtype=np.int64)
+        for i in range(SC_ORACLE_ROWS):
+            idx, _, _ = assign_batch_np(obs[i:i + 1], es, 1, 2)
+            out[i] = SC_K if idx[0] < 0 else idx[0]
+        return out, SC_ORACLE_ROWS, "assign_batch_np"
+    build_s = time.perf_counter() - t0
+    nib = np.left_shift(1, window).astype(np.uint8)  # ACGT masks 1,2,4,8
+    nib4 = np.ascontiguousarray(nib[:, 0::2] | (nib[:, 1::2] << 4))
+    t0 = time.perf_counter()
+    out = matcher.assign(nib4).astype(np.int64)
+    matcher.close()
+    log(f"[single-cell] host oracle NativeBigKMatcher: build {build_s:.1f} s "
+        f"(strings included), {len(window)} reads in {time.perf_counter() - t0:.3f} s")
+    return out, len(window), "NativeBigKMatcher"
+
+
+def phase_single_cell(card: str) -> dict:
+    from fqtk_tpu_torch.ops.device_encoding import pack_bit2
+    from fqtk_tpu_torch.ops.hopper_matcher import (
+        TileTop2,
+        make_hopper_assign_fn,
+        tile_top2_reference,
+    )
+    from fqtk_tpu_torch.runtime.demux import _Pending, _wrap_window_dedup
+
+    t0 = time.perf_counter()
+    es, codes = single_cell_whitelist(seed=2018)
+    log(f"[single-cell] {SC_K:,} distinct 16-bp barcodes made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fn = make_hopper_assign_fn(es, 1, 2, device="cuda")
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    if fn.scheme != "tile_top2":
+        raise AssertionError(f"K={SC_K} picked {fn.scheme}, not tile_top2")
+    st = fn.state
+    log(f"[single-cell] state built in {state_s:.2f} s: bit table {tuple(st.table.shape)} "
+        f"{st.table.dtype} ({st.table.numel() * 4 / 1e6:.0f} MB); scheme {fn.scheme}")
+
+    # kernel against plain, bench recipe (uniform draws)
+    kernel, plain = kernel_runs()["tile_top2"]
+    rng = np.random.default_rng(7)
+    obs = torch.from_numpy(pack_bit2(ACGT[single_cell_reads(rng, codes, SC_KERNEL_B)])).cuda()
+    err = 0
+    for rows in (SC_KERNEL_B, SC_KERNEL_B - 37):
+        o = obs[:rows].contiguous()
+        got = kernel(o, st)
+        want = plain(o, st)
+        torch.cuda.synchronize()
+        err = max(err, compare("tile_top2", got, want, f"K={SC_K} L={SC_L} B={rows}"))
+    ms = cuda_median_ms(lambda: kernel(obs, st), 5)
+    plain_ms = cuda_median_ms(lambda: plain(obs, st), 2)
+    shapes = [dict(k=SC_K, length=SC_L, b=SC_KERNEL_B, ms=ms, plain_ms=plain_ms)]
+    log(f"[single-cell] K={SC_K} L={SC_L} B={SC_KERNEL_B}: tile_top2 {ms:.4f} ms "
+        f"(median of 5), plain {plain_ms:.4f} ms (median of 2) ({card}); "
+        f"{SC_KERNEL_B / ms / 1e3:.3f}M rows/s kernel, "
+        f"{SC_KERNEL_B / plain_ms / 1e3:.3f}M rows/s plain")
+    del obs
+
+    # the path: one production window through the window dedup
+    window = single_cell_reads(rng, codes, SC_WINDOW, cells=SC_CELLS)
+    packed = pack_bit2(ACGT[window])
+    sent = []
+
+    def call(rows):
+        sent.append(rows)
+        return _Pending(fn(rows)[0], keep=rows)
+
+    assign = _wrap_window_dedup(call)
+    for kern in fn.kernels.values():
+        kern.launches = kern.plain_calls = 0
+    t0 = time.perf_counter()
+    assigned = assign(packed).fetch().astype(np.int64)
+    call_s = time.perf_counter() - t0
+    counts = {name: (kern.launches, kern.plain_calls) for name, kern in fn.kernels.items()}
+    launches = counts["tile_top2"][0]
+    if launches < 1 or counts["colmerge_top2"] != (0, 0) or fn.plain_calls:
+        raise AssertionError(f"single-cell window: kernel counts {counts}")
+    if len(sent) != 1 or len(sent[0]) >= SC_WINDOW:
+        raise AssertionError("the window dedup did not engage")
+    bucket = torch.from_numpy(sent[0]).cuda()
+    nb = len(sent[0])
+    kms = cuda_median_ms(lambda: kernel(bucket, st), 3)
+    log(f"[single-cell] window of {SC_WINDOW} reads ({SC_CELLS} cells): dedup bucket "
+        f"{nb} rows, {launches} tile_top2 launch(es), 0 plain calls; call "
+        f"{call_s * 1e3:.1f} ms (dedup + H2D + kernel + D2H + scatter, first call), "
+        f"kernel alone at B={nb} {kms:.4f} ms ({card})")
+
+    # the plain version's gated result on the same rows
+    t0 = time.perf_counter()
+    pb, pi, pn = plain(bucket, st)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(err, compare("tile_top2", kernel(bucket, st), (pb, pi, pn),
+                           f"K={SC_K} L={SC_L} B={nb} (the window's bucket)"))
+    ok = (pb <= 1) & (pn - pb >= 2)
+    plain_bucket = torch.where(ok, pi, SC_K).cpu().numpy().astype(np.int64)
+    keys = packed.view("<u4").reshape(-1)
+    uniq = np.unique(keys)
+    if not np.array_equal(sent[0][: len(uniq)].view("<u4").reshape(-1), uniq):
+        raise AssertionError("the bucket's rows are not the window's unique rows")
+    want = plain_bucket[: len(uniq)][np.searchsorted(uniq, keys)]
+    if not np.array_equal(assigned, want):
+        bad = int(np.nonzero(assigned != want)[0][0])
+        raise AssertionError(f"window row {bad}: path {assigned[bad]} plain {want[bad]}")
+    shapes.append(dict(k=SC_K, length=SC_L, b=nb, ms=kms, plain_ms=plain_s * 1e3))
+
+    # the C++ host matcher
+    host, n, oracle = host_oracle(codes, es, window)
+    if not np.array_equal(assigned[:n], host):
+        bad = int(np.nonzero(assigned[:n] != host)[0][0])
+        raise AssertionError(f"window row {bad}: path {assigned[bad]} {oracle} {host[bad]}")
+    matched = float((assigned < SC_K).mean())
+    log(f"[single-cell] assigned equal to the plain version's (one call on the "
+        f"bucket, {plain_s:.2f} s host clock; all {SC_WINDOW} rows) and to "
+        f"{oracle}'s ({n} rows); {matched:.4f} matched")
+    del fn, st, bucket
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, oracle=oracle)
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -361,34 +597,51 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.ensure_native_engine()
     log(f"[build] native I/O engine ready in {time.perf_counter() - t0:.1f} s")
-    info = _build.build_kernels()
-    _build.load_kernels()
-    log(
-        f"[build] CUDA kernels {'built' if info['built'] else 'reused'} in "
-        f"{info['seconds']:.1f} s -> {Path(info['path']).relative_to(ROOT)}"
-    )
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    built = _build.build_kernels()
+    log(f"[build] CUDA kernels ready in {time.perf_counter() - t0:.1f} s (one nvcc each, "
+        "started together)")
+    for kname, info in built.items():
+        log(f"[build] {kname} {'built' if info['built'] else 'reused'} in "
+            f"{info['seconds']:.1f} s -> {Path(info['path']).relative_to(ROOT)}")
+        for line in str(info["log"]).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
-    # phase 3: kernel against plain
+    # phase 3: kernels against plain
+    t0 = time.perf_counter()
     kr = phase_kernels(card)
+    log(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: the slice end to end (a fresh CLI process: its counts start at 0)
+    # phase 4: the 96-sample slice end to end (a fresh CLI process: its counts
+    # start at 0)
+    t0 = time.perf_counter()
     dr = phase_demux(card, WORK, N_READS, "cuda")
+    log(f"[demux] phase 4 took {time.perf_counter() - t0:.1f} s")
 
-    main_shape = next(s for s in kr["shapes"] if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE)
-    print(json.dumps({"kernels": [{
-        "name": "colmerge_top2",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": dr["launches"],
-        "max_abs_err": kr["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "shapes": kr["shapes"],
-    }]}))
+    # phase 5: the single-cell whitelist path (counts set to 0 before it)
+    t0 = time.perf_counter()
+    sc = phase_single_cell(card)
+    log(f"[single-cell] phase 5 took {time.perf_counter() - t0:.1f} s")
+
+    main_shape = next(
+        s for s in kr["shapes"]["colmerge_top2"]
+        if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE
+    )
+    rows = [
+        dict(name="colmerge_top2", launches=dr["launches"],
+             max_abs_err=kr["max_abs_err"]["colmerge_top2"], ms=main_shape["ms"],
+             plain_ms=main_shape["plain_ms"], shapes=kr["shapes"]["colmerge_top2"]),
+        dict(name="tile_top2", launches=sc["launches"],
+             max_abs_err=max(kr["max_abs_err"]["tile_top2"], sc["max_abs_err"]),
+             ms=sc["ms"], plain_ms=sc["plain_ms"],
+             shapes=kr["shapes"]["tile_top2"] + sc["shapes"]),
+    ]
+    print(json.dumps({"kernels": [
+        {"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][0],
+         "replaces": KERNELS[r["name"]][1], **{k: v for k, v in r.items() if k != "name"}}
+        for r in rows
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,7 +1,8 @@
 """Builds of the port's native code, loaded with ``ctypes``.
 
-- :func:`load_kernels` compiles ``fqtk_tpu_torch/csrc/*.cu`` with ``nvcc``
-  for ``sm_90a`` into one shared library with a plain C interface.
+- :func:`load_kernel` compiles each ``fqtk_tpu_torch/csrc/*.cu`` with
+  ``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
+  interface (one nvcc per source, all started together).
 - :func:`ensure_native_engine` makes sure the shared host I/O engine
   (``native/fqtk_io.cpp``, bound by :mod:`fqtk_tpu.io.native`) loads, by
   building it here when the committed binary does not.
@@ -39,6 +40,27 @@ NVCC_FLAGS = [
 #: warn; the code built is the same)
 NATIVE_CXXFLAGS = "-O3 $(ARCH) -std=c++17 -fPIC -Wall -pthread"
 
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+#: argument types of each kernel's entry point ``fqtk_<source stem>``; every
+#: entry point returns an int status (0 on success)
+ENTRY_POINTS = {
+    "colmerge_top2": [
+        _P, _I64, _I32,  # obs, b, width
+        _P, _I64, _I32, _I32,  # compat, k_pad, k, length
+        _I32,  # ksplit
+        _P, _P, _P,  # best, idx, next
+        _P,  # stream
+    ],
+    "tile_top2": [
+        _P, _I64, _I32,  # obs, b, width
+        _P, _I64, _I32, _I32, _I32,  # bits, k_pad, nw, k, length
+        _P,  # partial
+        _P, _P, _P,  # best, idx, next
+        _P,  # stream
+    ],
+}
+
 
 class BuildError(RuntimeError):
     pass
@@ -66,10 +88,11 @@ def find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-def build_kernels() -> Dict[str, object]:
-    """Compile the CUDA sources unless a build of the same sources and flags
-    exists.  Returns ``{"path", "seconds", "built", "log"}``; ``seconds`` is
-    0.0 when the existing build was reused.  Raises :class:`BuildError` with
+def build_kernels() -> Dict[str, Dict[str, object]]:
+    """Compile each ``csrc/<name>.cu`` into its own shared library unless a
+    build of the same source, headers and flags exists; the nvcc runs start
+    together.  Returns ``{name: {"path", "seconds", "built", "log"}}``;
+    ``seconds`` is 0.0 for a reused build.  Raises :class:`BuildError` with
     nvcc's output when nvcc is missing or fails."""
     nvcc = find_nvcc()
     if nvcc is None:
@@ -77,52 +100,55 @@ def build_kernels() -> Dict[str, object]:
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
             "and PATH); the CUDA kernels of fqtk_tpu_torch cannot be built"
         )
-    srcs = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
-    cu = [p for p in srcs if p.suffix == ".cu"]
-    tag = _digest(srcs, NVCC_FLAGS)
-    out = BUILD_DIR / f"libfqtk_tpu_torch_kernels_{tag}.so"
-    log = out.with_suffix(".log")
-    if out.exists():
-        return {"path": out, "seconds": 0.0, "built": False,
-                "log": log.read_text() if log.exists() else ""}
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           *map(str, cu)]
+    info: Dict[str, Dict[str, object]] = {}
+    running = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    text = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n{text}")
-    log.write_text(text)
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "built": True, "log": text}
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        out = BUILD_DIR / f"lib{src.stem}_{_digest([src, *headers], NVCC_FLAGS)}.so"
+        log = out.with_suffix(".log")
+        if out.exists():
+            info[src.stem] = {"path": out, "seconds": 0.0, "built": False,
+                              "log": log.read_text() if log.exists() else ""}
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)]
+        with open(f"{tmp}.log", "w") as sink:  # a file: no pipe to fill up
+            proc = subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT)
+        running[src.stem] = (cmd, out, tmp, proc)
+    failed = []
+    for name, (cmd, out, tmp, proc) in running.items():
+        proc.wait()
+        text = f"$ {' '.join(cmd)}\n{Path(f'{tmp}.log').read_text()}"
+        os.unlink(f"{tmp}.log")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n{text}")
+            continue
+        out.with_suffix(".log").write_text(text)
+        os.replace(tmp, out)
+        info[name] = {"path": out, "seconds": time.perf_counter() - t0,
+                      "built": True, "log": text}
+    if failed:
+        raise BuildError("\n".join(failed))
+    return info
 
 
 _KERNELS: Dict[str, ctypes.CDLL] = {}
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process,
-    with every entry point's ``argtypes``/``restype`` declared."""
-    lib = _KERNELS.get("lib")
-    if lib is not None:
-        return lib
-    info = build_kernels()
-    lib = ctypes.CDLL(str(info["path"]))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.fqtk_colmerge_top2.restype = i32
-    lib.fqtk_colmerge_top2.argtypes = [
-        p, i64, i32,  # obs, b, width
-        p, i64, i32, i32,  # compat, k_pad, k, length
-        i32,  # ksplit
-        p, p, p,  # best, idx, next
-        p,  # stream
-    ]
-    _KERNELS["lib"] = lib
-    return lib
+def load_kernel(name: str):
+    """Entry point ``fqtk_<name>`` of ``csrc/<name>.cu``'s library, with its
+    ``argtypes``/``restype`` declared.  The first call of a process builds
+    (or reuses) and loads every kernel library."""
+    if name not in _KERNELS:
+        for stem, info in build_kernels().items():
+            lib = ctypes.CDLL(str(info["path"]))
+            fn = getattr(lib, f"fqtk_{stem}")
+            fn.restype, fn.argtypes = _I32, ENTRY_POINTS[stem]
+            _KERNELS[stem] = lib
+    return getattr(_KERNELS[name], f"fqtk_{name}")
 
 
 def _dlopen_ok(path: Path) -> bool:

@@ -5,9 +5,11 @@ Counterparts of :func:`fqtk_tpu.ops.matcher.merge_top2` and
 first column that reaches it, and the smallest count over every other
 column.  The plain version of the Hopper kernel
 (:func:`fqtk_tpu_torch.ops.hopper_matcher.colmerge_top2_reference`) is
-built from these two.  Whitelists and the NumPy spec are shared with the
-JAX package (:class:`fqtk_tpu.ops.matcher.ExpectedSet`,
-:func:`fqtk_tpu.ops.matcher.assign_batch_np`).
+built from these two.  Whitelists, the NumPy spec and the C++ pigeonhole
+host matcher are shared with the JAX package
+(:class:`fqtk_tpu.ops.matcher.ExpectedSet`,
+:func:`fqtk_tpu.ops.matcher.assign_batch_np`,
+:class:`fqtk_tpu.io.native.NativeBigKMatcher`).
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ from typing import Tuple
 
 import torch
 
+from fqtk_tpu.io.native import NativeBigKMatcher, NativeDemuxError
 from fqtk_tpu.ops.matcher import MAX_COUNT, ExpectedSet, assign_batch_np
 
 __all__ = [
-    "MAX_COUNT", "ExpectedSet", "Top2", "assign_batch_np", "chunk_top2",
-    "merge_top2",
+    "MAX_COUNT", "ExpectedSet", "NativeBigKMatcher", "NativeDemuxError",
+    "Top2", "assign_batch_np", "chunk_top2", "merge_top2",
 ]
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

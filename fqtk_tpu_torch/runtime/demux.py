@@ -67,8 +67,9 @@ class DemuxConfig(_JaxDemuxConfig):
 
 @dataclass
 class DemuxResult(_JaxDemuxResult):
-    #: device matcher counters (``launches``, ``plain_calls``); empty when a
-    #: host matcher ran
+    #: device matcher counters: ``launches`` and ``plain_calls`` over both
+    #: kernels, and ``<kernel>_launches`` / ``<kernel>_plain_calls`` for
+    #: ``colmerge_top2`` and ``tile_top2``; empty when a host matcher ran
     matcher: Dict[str, int] = field(default_factory=dict)
 
 
@@ -181,6 +182,7 @@ def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
             "8-bit count key does not hold it, and the XLA-scan counterpart "
             f"for long barcodes is {_ROADMAP}"
         )
+    # colmerge_top2 up to K = 4,194,304, tile_top2 above (hopper_scheme)
     fn = make_hopper_assign_fn(
         expected,
         cfg.max_mismatches,
@@ -190,7 +192,8 @@ def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
         compact_output=True,
     )
     logger.info(
-        "device matcher: Hopper colmerge_top2 on %s (K=%d, L=%d)",
+        "device matcher: Hopper %s on %s (K=%d, L=%d)",
+        fn.scheme,
         fn.state.device,
         expected.count,
         expected.length,
@@ -506,11 +509,15 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
             "launches": device_matcher.launches,
             "plain_calls": device_matcher.plain_calls,
         }
+        for name, kern in device_matcher.kernels.items():
+            matcher_stats[f"{name}_launches"] = kern.launches
+            matcher_stats[f"{name}_plain_calls"] = kern.plain_calls
+        ran = device_matcher.kernels[device_matcher.scheme]
         logger.info(
-            "device matcher colmerge_top2: %d kernel launches, %d plain-version "
-            "calls",
-            device_matcher.launches,
-            device_matcher.plain_calls,
+            "device matcher %s: %d kernel launches, %d plain-version calls",
+            device_matcher.scheme,
+            ran.launches,
+            ran.plain_calls,
         )
 
     metrics = compute_metrics(sample_group, counts, cfg.unmatched_prefix)

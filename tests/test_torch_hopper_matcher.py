@@ -142,9 +142,10 @@ def test_state_matches_pallas_table(k):
     state = hm.hopper_state_from_numpy(es, "cpu")
     plan = plan_local_kernel(k, 13, tile_k=hm.K_ALIGN, packed2=True)
     want = compat_for_plan(es.masks, plan) // plan.compat_scale
-    assert state.compat.dtype == torch.int8
-    assert tuple(state.compat.shape) == want.shape == (4 * 13, plan.k_padded)
-    np.testing.assert_array_equal(state.compat.numpy(), want)
+    assert state.scheme == "colmerge_top2"
+    assert state.table.dtype == torch.int8
+    assert tuple(state.table.shape) == want.shape == (4 * 13, plan.k_padded)
+    np.testing.assert_array_equal(state.table.numpy(), want)
     assert (state.k, state.length) == (k, 13)
     assert state.max_ns_in_barcodes == es.max_ns_in_barcodes
 
@@ -154,7 +155,7 @@ def test_reference_signature_and_dtypes():
     es, obs = whitelist_case(rng, k=20, length=9, b=50)
     state = hm.hopper_state_from_numpy(es, "cpu")
     best, idx, nxt = hm.colmerge_top2_reference(
-        torch.from_numpy(pack_bit2(obs)), state.compat, es.count, es.length
+        torch.from_numpy(pack_bit2(obs)), state.table, es.count, es.length
     )
     assert best.dtype == idx.dtype == nxt.dtype == torch.int32
     _, s_best, s_next = spec(obs, es, 1, 2)

@@ -1,6 +1,6 @@
-"""The CUDA kernel ``colmerge_top2`` against its plain PyTorch version and
-the NumPy spec, on the card.  Marked ``gpu``: each test skips without a CUDA
-device.  Run on the card with
+"""The CUDA kernels ``colmerge_top2`` and ``tile_top2`` against their plain
+PyTorch versions and the NumPy spec, on the card.  Marked ``gpu``: each test
+skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -58,13 +58,13 @@ def test_kernel_matches_plain_on_card(k, length, b):
     _need_card()
     rng = np.random.default_rng(k + b)
     es, obs = whitelist_case(rng, k=k, length=length, b=b)
-    state = hm.hopper_state_from_numpy(es, "cuda")
+    state = hm.hopper_state_from_numpy(es, "cuda", "colmerge_top2")
     packed = torch.from_numpy(pack_bit2(obs)).cuda()
     kern = hm.ColmergeTop2()
-    got = kern(packed, state.compat, k, length)
+    got = kern(packed, state.table, k, length)
     torch.cuda.synchronize()
     assert kern.launches == 1 and kern.plain_calls == 0
-    want = hm.colmerge_top2_reference(packed, state.compat, k, length)
+    want = hm.colmerge_top2_reference(packed, state.table, k, length)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     _, s_best, s_next = spec(obs, es, 1, 2)
@@ -86,3 +86,109 @@ def test_assign_fn_on_card(mm, delta):
     assert got[0].dtype == np.uint8
     for g, w in zip(got, spec(obs, es, mm, delta)):
         np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+
+
+TILE_SHAPES = [
+    (1, 8, 100), (96, 17, 4096), (300, 12, 1000), (8192, 16, 2000),
+    (40, 33, 777), (50, 130, 300),  # L > 128: 17 bit words, the NW = 32 build
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,length,b", TILE_SHAPES)
+def test_tile_top2_matches_plain_on_card(k, length, b):
+    _need_card()
+    rng = np.random.default_rng(k + b + 1)
+    es, obs = whitelist_case(rng, k=k, length=length, b=b)
+    state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
+    packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    kern = hm.TileTop2()
+    got = kern(packed, state.table, k, length)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and kern.plain_calls == 0
+    want = hm.tile_top2_reference(packed, state.table, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)  # every row passes the gates
+    np.testing.assert_array_equal(got[0].cpu().numpy(), s_best)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+@pytest.mark.gpu
+def test_tile_top2_cross_tile_ties_on_card():
+    """Duplicates in different 8,192-column K tiles: the first index wins,
+    and the ragged last tile is masked."""
+    _need_card()
+    rng = np.random.default_rng(12)
+    k, length = 3 * hm.TILE_K + 77, 16
+    seqs = rng.choice(ACGT, size=(k, length)).astype(np.uint8)
+    seqs[hm.TILE_K + 5] = seqs[3]
+    seqs[k - 1] = seqs[hm.TILE_K + 9]
+    es = ExpectedSet.from_barcodes([bytes(r).decode() for r in seqs])
+    obs = np.concatenate([seqs[[3, hm.TILE_K + 9, k - 1, k - 2]],
+                          rng.choice(ACGT, size=(200, length)).astype(np.uint8)])
+    state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
+    packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    got = hm.TileTop2()(packed, state.table, k, length)
+    want = hm.tile_top2_reference(packed, state.table, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    idx = got[1].cpu().numpy()
+    assert list(idx[:4]) == [3, hm.TILE_K + 9, hm.TILE_K + 9, k - 2]
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)
+    np.testing.assert_array_equal(idx, s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+@pytest.mark.gpu
+def test_tile_top2_assign_fn_on_card():
+    _need_card()
+    rng = np.random.default_rng(10)
+    es, obs = whitelist_case(rng, k=96, length=17, b=5000)
+    state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
+    fn = hm.HopperAssignFn(state, 1, 2, compact_output=True)
+    assert fn.scheme == "tile_top2"
+    got = [t.cpu().numpy() for t in fn(pack_bit2(obs))]
+    assert fn.kernels["tile_top2"].launches == 1
+    assert fn.launches == 1 and fn.plain_calls == 0
+    for g, w in zip(got, spec(obs, es, 1, 2)):
+        np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+def test_failing_kernel_load_raises_on_card(monkeypatch, kernel):
+    """A CUDA tensor launches the kernel or raises: with no build to load,
+    neither wrapper runs its plain version."""
+    _need_card()
+    from fqtk_tpu_torch.ops import _build
+
+    es = ExpectedSet.from_barcodes(["ACGTACGT", "TTTTCCCC"])
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel)
+    packed = torch.from_numpy(pack_bit2(np.frombuffer(b"ACGTACGT", np.uint8)[None])).cuda()
+    monkeypatch.setattr(_build, "_KERNELS", {})
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        kern(packed, state.table, 2, 8)
+    assert kern.launches == 0 and kern.plain_calls == 0
+
+
+@pytest.mark.gpu
+def test_tile_top2_row_chunks_on_card(monkeypatch):
+    """A batch larger than the partial buffer's row budget launches in row
+    chunks (one count each) and equals the plain version."""
+    _need_card()
+    rng = np.random.default_rng(14)
+    k, length, b = 2 * hm.TILE_K + 5, 12, 1000
+    es, obs = whitelist_case(rng, k=k, length=length, b=b)
+    state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
+    packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    monkeypatch.setattr(hm, "_PARTIAL_MAX_BYTES", 4 * 3 * 256)  # 256 rows
+    kern = hm.TileTop2()
+    got = kern(packed, state.table, k, length)
+    assert kern.launches == 4
+    want = hm.tile_top2_reference(packed, state.table, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
