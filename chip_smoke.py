@@ -31,6 +31,19 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              (no plain call, no ``colmerge_top2`` launch); ``assigned`` must
              equal the plain version's gated result on the same rows and the
              C++ pigeonhole host matcher's.
+6. kernel lab — ``python -m fqtk_tpu_torch.lab.kernel_lab``'s run at its
+             full size (K = 737,280 barcodes of L = 16, W = 4): every
+             default spec (``DEFAULT_SPECS``: the JAX lab's defaults, plus
+             every other ported variant) built, timed by the lab's rate
+             slope (B = 65,536 and 131,072) and spot-checked against
+             ``colmerge_top2``, with the lab kernels' counts set to 0 just
+             before and read just after (each of ``mma_probe``,
+             ``lab_probe``, ``clamp16_top2``, ``group_top2``,
+             ``clamp8_top2`` launched, no plain call); then each variant
+             against its plain version bit for bit at the shapes that run
+             gave it — B = 131,072 and 65,536 on the rate slope's own rows —
+             and at a ragged B = 15,872 of the spot check's reads, with
+             kernel and plain times at B = 16,384.
 
 The second-to-last line is the card as ``nvidia-smi`` names it, preceded by
 a ``{"kernels": [...]}`` line; the last line is
@@ -60,13 +73,19 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "fqtk_tpu_torch" / "smoke"
 LOGS = ROOT / "build" / "fqtk_tpu_torch" / "smoke_logs"
 
-#: name -> (source, the TPU kernel it replaces; both launched by run_kernel's
-#: pl.pallas_call at pallas_matcher.py:462)
+#: name -> (source, the TPU kernel it replaces: the first two are launched by
+#: run_kernel's pl.pallas_call at pallas_matcher.py:462, the lab's by the
+#: pl.pallas_call named)
 KERNELS = {
     "colmerge_top2": ("fqtk_tpu_torch/csrc/colmerge_top2.cu",
                       "fqtk_tpu/ops/pallas_matcher.py:373"),  # kernel_colmerge
     "tile_top2": ("fqtk_tpu_torch/csrc/tile_top2.cu",
                   "fqtk_tpu/ops/pallas_matcher.py:285"),  # kernel (per-step)
+    "mma_probe": ("fqtk_tpu_torch/csrc/mma_probe.cu", "scripts/kernel_lab.py:139"),
+    "lab_probe": ("fqtk_tpu_torch/csrc/lab_probe.cu", "scripts/kernel_lab.py:222"),
+    "clamp16_top2": ("fqtk_tpu_torch/csrc/clamp16_top2.cu", "scripts/kernel_lab.py:314"),
+    "group_top2": ("fqtk_tpu_torch/csrc/group_top2.cu", "scripts/kernel_lab.py:419"),
+    "clamp8_top2": ("fqtk_tpu_torch/csrc/clamp8_top2.cu", "scripts/kernel_lab.py:515"),
 }
 
 #: phase 3 shapes (K, L, B): at 96 samples the window dedup's bucket (what
@@ -145,11 +164,13 @@ def cuda_median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def compare(name: str, got, want, where: str) -> int:
-    """Max abs difference of two (best, idx, next) triples; raises unless
-    they are equal."""
+def compare(name: str, got, want, where: str, fields=("best", "idx", "next")) -> int:
+    """Max abs difference of two output tuples (by default (best, idx,
+    next)); raises unless they are equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name} at {where}: {len(got)} outputs, plain {len(want)}")
     err = 0
-    for field, g, w in zip(("best", "idx", "next"), got, want):
+    for field, g, w in zip(fields, got, want):
         err = max(err, int((g.long() - w.long()).abs().max().item()))
         if not torch.equal(g, w):
             bad = int((g != w).nonzero()[0, 0])
@@ -583,6 +604,87 @@ def phase_single_cell(card: str) -> dict:
                 plain_ms=plain_ms, oracle=oracle)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the kernel lab
+# --------------------------------------------------------------------------
+
+LAB_K, LAB_L = 737_280, 16  # the lab's defaults (FQTK_LAB_K, FQTK_LAB_L)
+LAB_B = 16_384
+LAB_KERNEL_NAMES = ("mma_probe", "lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
+
+
+def phase_lab(card: str) -> dict:
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+    from fqtk_tpu_torch.ops import lab_kernels as lk
+
+    t0 = time.perf_counter()
+    codes, masks = lab.lab_inputs(LAB_K, LAB_L)
+    log(f"[lab] {LAB_K:,} barcodes of L = {LAB_L} made in {time.perf_counter() - t0:.1f} s; "
+        f"v3w_clamp8 runs clamp8_top2 (POPC counting has no MXU output type)")
+
+    # the path: the lab's run, counts set to 0 just before and read just after
+    variants, per = {}, {}
+    lk.reset_counts()
+    t0 = time.perf_counter()
+    for spec in lab.DEFAULT_SPECS:
+        name, tb, tk, label = lab.parse_spec(spec)
+        go, table, macs = lab.make_lab_variant(
+            name, masks, LAB_L, tile_b=tb, tile_k=tk, device="cuda"
+        )
+        rate, times = lab.rate_of(go, table, codes)
+        variants[label] = (go, table)
+        kernel = go.params.kernel if go.params else "colmerge_top2"
+        per[label] = dict(label=label, kernel=kernel, reads_per_s=rate,
+                          equiv_dense_tops=2.0 * macs * rate / 1e12,
+                          times_s=dict(zip(("b65536", "b131072"), times)))
+        log(f"[lab] {label:24s} {kernel:13s} {rate:14.1f} reads/s (slope, B 65,536 -> "
+            f"131,072)  {per[label]['equiv_dense_tops']:6.2f} TOPS of equiv. dense "
+            f"MACs  times={['%.4f' % t for t in times]} s ({card})")
+    checks = lab.spot_check(variants, codes)
+    counts = lk.counts()
+    run_s = time.perf_counter() - t0
+    for label, res in checks:
+        text = " ".join(f"{c}={'OK' if ok else 'MISMATCH'}" for c, ok in res.items())
+        log(f"[lab] check {label} against v0_colmerge(512,2048): {text} ({card})")
+        if not all(res.values()):
+            raise AssertionError(f"lab spot check {label}: {res}")
+    if len(checks) != sum(lab_.startswith(("v3", "v5", "v6")) for lab_ in variants):
+        raise AssertionError("the lab spot check skipped a variant")
+    for kname in LAB_KERNEL_NAMES:
+        launches, plain = counts[kname]
+        if launches < 1 or plain:
+            raise AssertionError(f"lab path: {kname} {launches} launches, {plain} plain calls")
+    log(f"[lab] the lab's run took {run_s:.1f} s; counts (launches, plain calls) {counts}")
+
+    # each variant against its plain version: on the first timed rows of each
+    # of the rate slope's batch sizes (the largest grids and partials the run
+    # launched), and on a ragged B of the spot check's reads
+    slope_rows = [torch.from_numpy(rows[0]) for rows in lab.rate_inputs(codes, lab.BATCHES["cuda"])]
+    spot = torch.from_numpy(lab.pack_bit2(lab.spot_rows(codes, LAB_B)))
+    cases = [*reversed(slope_rows), spot[:LAB_B - 512]]
+    obs = spot.cuda()
+    max_err = {kname: 0 for kname in LAB_KERNEL_NAMES}
+    for label, (go, table) in variants.items():
+        row = per[label]
+        for rows in cases:
+            o = rows.cuda()
+            got = go(o, table)
+            want = go.plain(o, table)
+            torch.cuda.synchronize()
+            err = compare(label, got, want, f"K={LAB_K} L={LAB_L} B={len(o)}", go.fields)
+            if row["kernel"] in max_err:
+                max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+            del o, got, want
+        row["ms"] = cuda_median_ms(lambda: go(obs, table), 5)
+        row["plain_ms"] = cuda_median_ms(lambda: go.plain(obs, table), 1)
+        log(f"[lab] {label:24s} K={LAB_K} L={LAB_L} B={LAB_B}: kernel {row['ms']:.4f} ms "
+            f"(median of 5), plain {row['plain_ms']:.4f} ms (one call after a warm one); "
+            f"bit-identical at B {', '.join(str(len(c)) for c in cases)} ({card})")
+    del variants, obs
+    torch.cuda.empty_cache()
+    return dict(counts=counts, per=per, max_abs_err=max_err)
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -624,6 +726,11 @@ def main() -> int:
     sc = phase_single_cell(card)
     log(f"[single-cell] phase 5 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 6: the kernel lab (counts set to 0 before it)
+    t0 = time.perf_counter()
+    lr = phase_lab(card)
+    log(f"[lab] phase 6 took {time.perf_counter() - t0:.1f} s")
+
     main_shape = next(
         s for s in kr["shapes"]["colmerge_top2"]
         if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE
@@ -637,6 +744,12 @@ def main() -> int:
              ms=sc["ms"], plain_ms=sc["plain_ms"],
              shapes=kr["shapes"]["tile_top2"] + sc["shapes"]),
     ]
+    for kname in LAB_KERNEL_NAMES:
+        runs = [r for r in lr["per"].values() if r["kernel"] == kname]
+        rows.append(dict(name=kname, launches=lr["counts"][kname][0],
+                         max_abs_err=lr["max_abs_err"][kname], ms=runs[0]["ms"],
+                         plain_ms=runs[0]["plain_ms"], variant=runs[0]["label"],
+                         variants=runs))
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][0],
          "replaces": KERNELS[r["name"]][1], **{k: v for k, v in r.items() if k != "name"}}

@@ -59,6 +59,35 @@ ENTRY_POINTS = {
         _P, _P, _P,  # best, idx, next
         _P,  # stream
     ],
+    # the kernel lab (ops/lab_kernels.py)
+    "lab_probe": [
+        _P, _I64, _I32,  # obs, b, width
+        _P, _I32, _I32,  # bits, nw, length
+        _I32, _I32,  # tile_k, n_k_tiles
+        _I32, _I32, _I32,  # mode, ck, sink_flag
+        _P, _P,  # partial, out
+        _P,  # stream
+    ],
+    "mma_probe": [
+        _P, _I64, _I32,  # obs, b, width
+        _P, _I32, _I32,  # table, kp, length
+        _I32, _I32,  # tile_k, n_k_tiles
+        _I32,  # sink_flag
+        _P,  # out
+        _P,  # stream
+    ],
+    **{
+        stem: [
+            _P, _I64, _I32,  # obs, b, width
+            _P, _I32, _I32,  # bits, nw, length
+            _I32, _I32,  # tile_k, n_k_tiles
+            _I32, _I32,  # w_clamp (group P for group_top2), nt_pow2
+            _P,  # partial
+            _P, _P, _P,  # best, idx, next
+            _P,  # stream
+        ]
+        for stem in ("clamp16_top2", "group_top2", "clamp8_top2")
+    },
 }
 
 

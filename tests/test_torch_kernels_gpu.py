@@ -1,6 +1,7 @@
-"""The CUDA kernels ``colmerge_top2`` and ``tile_top2`` against their plain
-PyTorch versions and the NumPy spec, on the card.  Marked ``gpu``: each test
-skips without a CUDA device.  Run on the card with
+"""The CUDA kernels ``colmerge_top2``, ``tile_top2`` and the kernel lab's
+(``lab_probe``, ``clamp16_top2``, ``group_top2``, ``clamp8_top2``) against
+their plain PyTorch versions and the NumPy spec, on the card.  Marked
+``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
@@ -13,6 +14,7 @@ import torch
 
 from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
 from fqtk_tpu_torch.ops import hopper_matcher as hm
+from fqtk_tpu_torch.ops import lab_kernels as lk
 from fqtk_tpu_torch.ops.device_encoding import pack_bit2
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -192,3 +194,117 @@ def test_tile_top2_row_chunks_on_card(monkeypatch):
     want = hm.tile_top2_reference(packed, state.table, k, length)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# the kernel lab's kernels (TPU kernels #3-#7)
+# --------------------------------------------------------------------------
+
+#: (variant, K, L, tile_k): K not a multiple of tile_k (pad columns of all
+#: ones), every bit-word count NW = 1..4 (for ``v4_int4``: every mma depth
+#: KP = 32..128)
+LAB_CASES = [
+    ("v4_int4", 5000, 16, 128),
+    ("v4_int4", 3000, 7, 64),
+    ("v4_int4", 3000, 24, 96),
+    ("v4_int4", 5000, 31, 256),
+    *[(name, 5000, 16, 128) for name in lk.PROBES],
+    ("v5_clamp16", 5000, 16, 128),
+    ("v6_group2", 5000, 16, 128),
+    ("v6_group4", 5000, 7, 128),
+    ("v6_group8", 5000, 24, 128),
+    ("v3_clamp8", 5000, 31, 128),
+    ("v3w_clamp8", 3000, 16, 256),
+    ("p_i8minmax", 3000, 7, 64),
+    ("v1_m1only", 3000, 31, 96),
+]
+
+
+def lab_case(name, k, length, tile_k, b, seed):
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    codes = lab.unique_barcodes(k, length)
+    rng = np.random.default_rng(seed)
+    obs = codes[rng.integers(0, k, size=b)].copy()
+    mut = rng.random(b) < 0.5
+    obs[mut, rng.integers(0, length, size=b)[mut]] = rng.integers(0, 4, size=int(mut.sum()))
+    params = lk.lab_params(name, k, length, tile_k)
+    bits = lab.table_for(params.kernel, lab.masks_of(codes), tile_k, "cuda")
+    return params, bits, torch.from_numpy(lab.pack_bit2(obs)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,k,length,tile_k", LAB_CASES)
+def test_lab_kernel_matches_plain_on_card(name, k, length, tile_k):
+    _need_card()
+    params, bits, obs = lab_case(name, k, length, tile_k, b=1024, seed=k + length)
+    kern = lk.make_lab_kernels()[params.kernel]
+    for rows in (1024, 1024 - 37):  # and a ragged row tile
+        o = obs[:rows].contiguous()
+        got = kern(o, bits, params)
+        want = kern.reference(o, bits, params)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.shape == (rows,)
+            assert torch.equal(g, w)
+    assert (kern.launches, kern.plain_calls) == (2, 0)
+
+
+@pytest.mark.gpu
+def test_lab_variants_launch_on_card():
+    """make_lab_variant on the card: every ported variant goes through its
+    kernel (the shared wrappers count it), and the exact v6 equals v0."""
+    _need_card()
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    codes = lab.unique_barcodes(4096, 16)
+    obs = torch.from_numpy(lab.pack_bit2(codes[::4])).cuda()
+    lk.reset_counts()
+    outs = {}
+    for name in ("v0_colmerge", "v4_int4", *lk.PROBES, "v5_clamp16", "v6_group4",
+                 "v3_clamp8"):
+        go, table, _ = lab.make_lab_variant(name, lab.masks_of(codes), 16, tile_b=256,
+                                            tile_k=256, device="cuda")
+        outs[name] = [t.cpu() for t in go(obs, table)]
+    assert lk.counts() == {"mma_probe": (1, 0), "lab_probe": (5, 0), "clamp16_top2": (1, 0),
+                           "group_top2": (1, 0), "clamp8_top2": (1, 0)}
+    best, idx, nxt = outs["v0_colmerge"]
+    assert torch.equal(best, torch.zeros_like(best))
+    assert torch.equal(outs["v6_group4"][0], idx) and torch.equal(outs["v6_group4"][2], nxt)
+    # v4_int4: mismatches against column 3,840 (column 0 of the last K tile)
+    # of distinct barcodes: 0 only for the row that is that barcode
+    (v4,) = outs["v4_int4"]
+    assert torch.equal(torch.nonzero(v4 == 0).flatten(), torch.tensor([3840 // 4]))
+
+
+@pytest.mark.gpu
+def test_failing_lab_kernel_load_raises_on_card(monkeypatch):
+    _need_card()
+    from fqtk_tpu_torch.ops import _build
+
+    params, bits, obs = lab_case("v6_group2", 512, 16, 128, b=64, seed=3)
+    monkeypatch.setattr(_build, "_KERNELS", {})
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    kern = lk.make_lab_kernels()["group_top2"]
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        kern(obs, bits, params)
+    assert kern.launches == 0 and kern.plain_calls == 0
+
+
+def test_every_cu_has_an_entry_point():
+    """``load_kernel`` loads every ``csrc/*.cu`` and looks up its
+    ``ENTRY_POINTS`` entry: each source needs one, with as many argument
+    types as its ``extern "C"`` function has parameters."""
+    import re
+
+    from fqtk_tpu_torch.ops import _build
+
+    stems = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert stems == sorted(_build.ENTRY_POINTS)
+    for stem in stems:
+        src = (_build.CSRC_DIR / f"{stem}.cu").read_text()
+        m = re.search(r'extern "C" int fqtk_%s\(([^)]*)\)' % stem, src)
+        assert m is not None, stem
+        assert m.group(1).count(",") + 1 == len(_build.ENTRY_POINTS[stem]), stem
