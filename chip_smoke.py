@@ -13,8 +13,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              per source, all started together).
 3. kernels — ``colmerge_top2`` and ``tile_top2`` against their plain
              versions bit for bit at K = 96 / 8,192 / 737,280, with median
-             times of all four; each kernel on a state built for it (the
-             table it reads).
+             times of all four, each kernel's bound (the larger of its int8
+             operations over the card's peak and its bytes over the memory
+             rate) and, as information, ``torch._int_mm`` for the counts
+             alone; each kernel on a state built for it.
 4. demux   — a 2,000,000-read dual-index paired-end run with 96 samples
              through ``python -m fqtk_tpu_torch.cli demux --matcher device
              --device cuda``; ``colmerge_top2`` must have been launched, and
@@ -45,8 +47,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              and at a ragged B = 15,872 of the spot check's reads, with
              kernel and plain times at B = 16,384.
 
-The second-to-last line is the card as ``nvidia-smi`` names it, preceded by
-a ``{"kernels": [...]}`` line; the last line is
+After the last phase the script fails if ``jax`` or any module of the JAX
+package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
+as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
+kernel: launches on its path, max abs error, kernel / plain / bound /
+library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
 ``build/fqtk_tpu_torch/smoke_logs/``.
 """
@@ -57,7 +62,6 @@ import gzip
 import json
 import re
 import shutil
-import statistics
 import struct
 import subprocess
 import sys
@@ -150,18 +154,43 @@ def kernel_case(k: int, length: int, b: int, seed: int):
 
 
 def cuda_median_ms(fn, reps: int) -> float:
-    fn()  # warm
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    """Median CUDA-event time of ``fn`` after one warm call (the kernel
+    timing script's timer, so that both report the same quantity)."""
+    from fqtk_tpu_torch.lab.time_top2 import median_ms
+
+    return median_ms(fn, reps)
+
+
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense): int8
+#: tensor-core operations per second, device memory bytes per second
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
+
+def top2_bound(k_counted: int, depth: int, b: int, width: int, table_bytes: int):
+    """``(bound_ms, bound_by)`` of a counts-and-top-2 kernel over ``b`` rows
+    and ``k_counted`` columns at contraction depth ``depth`` (the ``KP`` or
+    ``4L`` the kernel multiplies): the larger of ``2 * b * k_counted *
+    depth`` int8 operations at the card's peak and the bytes the function
+    must move (rows in, the table once, 12 bytes per row out) at its memory
+    rate."""
+    ops_ms = 2.0 * b * k_counted * depth / PEAK_INT8_OPS * 1e3
+    bytes_ms = (b * width + table_bytes + 12 * b) / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def int_mm_counts_ms(obs: torch.Tensor, length: int, cols: int, reps: int = 5) -> float:
+    """Time of ``torch._int_mm`` for the COUNTS ALONE of ``obs``'s rows
+    against ``cols`` random 0/1 int8 columns at depth 4L rounded up to 32 (no
+    top-2: no one PyTorch call computes the kernels' function).  A yardstick
+    that the port never calls."""
+    from fqtk_tpu_torch.ops.hopper_matcher import _onehot_f32
+
+    depth = -(-4 * length // 32) * 32
+    onehot = torch.zeros((obs.shape[0], depth), dtype=torch.int8, device=obs.device)
+    onehot[:, :4 * length] = _onehot_f32(obs, length).to(torch.int8)
+    table = torch.randint(0, 2, (depth, cols), dtype=torch.int8, device=obs.device)
+    return cuda_median_ms(lambda: torch._int_mm(onehot, table), reps)
 
 
 def compare(name: str, got, want, where: str, fields=("best", "idx", "next")) -> int:
@@ -205,7 +234,24 @@ def kernel_runs():
     }
 
 
+def shape_row(k: int, length: int, obs: torch.Tensor, state, ms: float,
+              plain_ms: float) -> dict:
+    """One measured shape of ``colmerge_top2`` / ``tile_top2``: its times,
+    its bound over the function's K columns at the function's depth 4L (the
+    table's pad columns and pad depth are the kernel's choice and do not
+    count), and the library yardstick (counts only, on one K chunk, scaled
+    to K)."""
+    b = obs.shape[0]
+    bound_ms, bound_by = top2_bound(k, 4 * length, b, obs.shape[1], k * 4 * length)
+    # one K chunk whose [B, cols] int32 counts stay within 1 GiB
+    cols = max(128, min(state.k_pad, (1 << 28) // b // 128 * 128))
+    library_ms = int_mm_counts_ms(obs, length, cols) * (k / cols)
+    return dict(k=k, length=length, b=b, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def phase_kernels(card: str) -> dict:
+    from fqtk_tpu_torch.lab.time_top2 import queued_ms
     from fqtk_tpu_torch.ops.hopper_matcher import hopper_state_from_numpy
 
     runs = kernel_runs()
@@ -227,11 +273,18 @@ def phase_kernels(card: str) -> dict:
             reps = 5 if k > 10_000 else 20
             ms = cuda_median_ms(lambda: kernel(obs, state), reps)
             plain_ms = cuda_median_ms(lambda: plain(obs, state), reps)
-            shapes[name].append(dict(k=k, length=length, b=b, ms=ms, plain_ms=plain_ms))
+            row = shape_row(k, length, obs, state, ms, plain_ms)
+            if k <= 10_000:  # launch-bound: the device's own time per launch
+                row["queued_ms"] = queued_ms(lambda: kernel(obs, state), 200)
+            shapes[name].append(row)
             log(
                 f"[kernels] K={k} L={length} B={b}: {name} {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms (median of {reps}; {card}); "
-                f"{b / ms / 1e3:.1f}M rows/s kernel, {b / plain_ms / 1e3:.1f}M rows/s plain"
+                f"plain {plain_ms:.4f} ms (median of {reps}; {card}); bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                f"({100 * row['bound_ms'] / ms:.1f}% reached); torch._int_mm, counts "
+                f"only, {row['library_ms']:.4f} ms"
+                + (f"; {row['queued_ms']:.4f} ms per launch behind a full queue"
+                   if "queued_ms" in row else "")
             )
             del state
         del obs
@@ -518,8 +571,8 @@ def phase_single_cell(card: str) -> dict:
     if fn.scheme != "tile_top2":
         raise AssertionError(f"K={SC_K} picked {fn.scheme}, not tile_top2")
     st = fn.state
-    log(f"[single-cell] state built in {state_s:.2f} s: bit table {tuple(st.table.shape)} "
-        f"{st.table.dtype} ({st.table.numel() * 4 / 1e6:.0f} MB); scheme {fn.scheme}")
+    log(f"[single-cell] state built in {state_s:.2f} s: table {tuple(st.table.shape)} "
+        f"{st.table.dtype} ({st.table.numel() / 1e6:.0f} MB); scheme {fn.scheme}")
 
     # kernel against plain, bench recipe (uniform draws)
     kernel, plain = kernel_runs()["tile_top2"]
@@ -534,11 +587,12 @@ def phase_single_cell(card: str) -> dict:
         err = max(err, compare("tile_top2", got, want, f"K={SC_K} L={SC_L} B={rows}"))
     ms = cuda_median_ms(lambda: kernel(obs, st), 5)
     plain_ms = cuda_median_ms(lambda: plain(obs, st), 2)
-    shapes = [dict(k=SC_K, length=SC_L, b=SC_KERNEL_B, ms=ms, plain_ms=plain_ms)]
+    shapes = [shape_row(SC_K, SC_L, obs, st, ms, plain_ms)]
     log(f"[single-cell] K={SC_K} L={SC_L} B={SC_KERNEL_B}: tile_top2 {ms:.4f} ms "
-        f"(median of 5), plain {plain_ms:.4f} ms (median of 2) ({card}); "
-        f"{SC_KERNEL_B / ms / 1e3:.3f}M rows/s kernel, "
-        f"{SC_KERNEL_B / plain_ms / 1e3:.3f}M rows/s plain")
+        f"(median of 5), plain {plain_ms:.4f} ms (median of 2) ({card}); bound "
+        f"{shapes[0]['bound_ms']:.4f} ms by {shapes[0]['bound_by']} "
+        f"({100 * shapes[0]['bound_ms'] / ms:.1f}% reached); torch._int_mm, counts only, "
+        f"{shapes[0]['library_ms']:.4f} ms")
     del obs
 
     # the path: one production window through the window dedup
@@ -587,7 +641,9 @@ def phase_single_cell(card: str) -> dict:
     if not np.array_equal(assigned, want):
         bad = int(np.nonzero(assigned != want)[0][0])
         raise AssertionError(f"window row {bad}: path {assigned[bad]} plain {want[bad]}")
-    shapes.append(dict(k=SC_K, length=SC_L, b=nb, ms=kms, plain_ms=plain_s * 1e3))
+    shapes.append(shape_row(SC_K, SC_L, bucket, st, kms, plain_s * 1e3))
+    log(f"[single-cell] the bucket's launch: bound {shapes[-1]['bound_ms']:.4f} ms by "
+        f"{shapes[-1]['bound_by']} ({100 * shapes[-1]['bound_ms'] / kms:.1f}% reached)")
 
     # the C++ host matcher
     host, n, oracle = host_oracle(codes, es, window)
@@ -600,8 +656,8 @@ def phase_single_cell(card: str) -> dict:
         f"{oracle}'s ({n} rows); {matched:.4f} matched")
     del fn, st, bucket
     torch.cuda.empty_cache()
-    return dict(launches=launches, shapes=shapes, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, oracle=oracle)
+    return dict(launches=launches, shapes=shapes, max_abs_err=err, oracle=oracle,
+                call_ms=call_s * 1e3)
 
 
 # --------------------------------------------------------------------------
@@ -677,12 +733,23 @@ def phase_lab(card: str) -> dict:
             del o, got, want
         row["ms"] = cuda_median_ms(lambda: go(obs, table), 5)
         row["plain_ms"] = cuda_median_ms(lambda: go.plain(obs, table), 1)
+        # the lab's pad columns count: K_counted is the padded K
+        k_counted = go.params.k_padded if go.params else LAB_K
+        row["bound_ms"], row["bound_by"] = top2_bound(
+            k_counted, 4 * LAB_L, LAB_B, obs.shape[1], table.numel() * table.element_size()
+        )
         log(f"[lab] {label:24s} K={LAB_K} L={LAB_L} B={LAB_B}: kernel {row['ms']:.4f} ms "
             f"(median of 5), plain {row['plain_ms']:.4f} ms (one call after a warm one); "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({100 * row['bound_ms'] / row['ms']:.1f}% reached); "
             f"bit-identical at B {', '.join(str(len(c)) for c in cases)} ({card})")
+    lib_cols = (1 << 28) // LAB_B // 128 * 128
+    library_ms = int_mm_counts_ms(obs, LAB_L, lib_cols) * (LAB_K / lib_cols)
+    log(f"[lab] torch._int_mm, counts only, K={LAB_K} B={LAB_B} (one chunk of {lib_cols} "
+        f"columns, scaled to K): {library_ms:.4f} ms ({card})")
     del variants, obs
     torch.cuda.empty_cache()
-    return dict(counts=counts, per=per, max_abs_err=max_err)
+    return dict(counts=counts, per=per, max_abs_err=max_err, library_ms=library_ms)
 
 
 def main() -> int:
@@ -731,25 +798,46 @@ def main() -> int:
     lr = phase_lab(card)
     log(f"[lab] phase 6 took {time.perf_counter() - t0:.1f} s")
 
+    # a module of the JAX package, or jax itself, must not have been loaded
+    loaded = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.") or m == "fqtk_tpu"
+                    or m.startswith("fqtk_tpu."))
+    if loaded:
+        raise AssertionError(f"the port loaded modules of the JAX package: {loaded[:8]}")
+
+    log("[end to end] " + json.dumps({
+        "demux_reads_per_s": dr["reads_per_s"], "demux_cli_wall_s": dr["wall_s"],
+        "single_cell_window_call_ms": sc["call_ms"], "card": card}))
+
+    # per kernel: its main-path shape's numbers, launches on its path
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_shape = next(
         s for s in kr["shapes"]["colmerge_top2"]
         if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE
     )
+    window_shape = sc["shapes"][-1]  # the single-cell window's dedup bucket
     rows = [
         dict(name="colmerge_top2", launches=dr["launches"],
-             max_abs_err=kr["max_abs_err"]["colmerge_top2"], ms=main_shape["ms"],
-             plain_ms=main_shape["plain_ms"], shapes=kr["shapes"]["colmerge_top2"]),
+             launches_per="2,000,000-read 96-sample demux",
+             max_abs_err=kr["max_abs_err"]["colmerge_top2"],
+             **{key: main_shape[key] for key in keys},
+             shapes=kr["shapes"]["colmerge_top2"]),
         dict(name="tile_top2", launches=sc["launches"],
+             launches_per="131,072-read single-cell window",
              max_abs_err=max(kr["max_abs_err"]["tile_top2"], sc["max_abs_err"]),
-             ms=sc["ms"], plain_ms=sc["plain_ms"],
+             **{key: window_shape[key] for key in keys},
              shapes=kr["shapes"]["tile_top2"] + sc["shapes"]),
     ]
     for kname in LAB_KERNEL_NAMES:
         runs = [r for r in lr["per"].values() if r["kernel"] == kname]
         rows.append(dict(name=kname, launches=lr["counts"][kname][0],
+                         launches_per="kernel lab run (every default spec)",
                          max_abs_err=lr["max_abs_err"][kname], ms=runs[0]["ms"],
-                         plain_ms=runs[0]["plain_ms"], variant=runs[0]["label"],
-                         variants=runs))
+                         plain_ms=runs[0]["plain_ms"], bound_ms=runs[0]["bound_ms"],
+                         bound_by=runs[0]["bound_by"],
+                         # counts only; the emit has no library counterpart
+                         library_ms=lr["library_ms"] if kname == "mma_probe" else None,
+                         variant=runs[0]["label"], variants=runs))
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][0],
          "replaces": KERNELS[r["name"]][1], **{k: v for k, v in r.items() if k != "name"}}

@@ -3,21 +3,29 @@
 A second package beside ``fqtk_tpu``: the same FASTQ demultiplexing, with
 the device side of ``demux`` in PyTorch and its barcode-matcher kernel
 written by hand in CUDA C++ for Hopper (``sm_90a``).  ``fqtk_tpu`` stays
-the reference; the host side (native C++ I/O engine, read structures,
-sample metadata, host matchers, metrics, subsample) is imported from it
-unchanged, and none of that loads JAX.
+the reference and is never imported: the host side (the binding of the
+native C++ I/O engine, read structures, sample metadata, the NumPy spec,
+metrics, subsample, the shard merge) is this package's own copy, under the
+JAX package's module names.
 
 Layers:
 
-- ``fqtk_tpu_torch.ops``      — device compute: bit2 unpacking, the top-2
-                                merge, the Hopper ``colmerge_top2`` kernel
-                                with its plain PyTorch version.
-- ``fqtk_tpu_torch.runtime``  — the device side of the demux pipeline and
-                                its native driver loop.
+- ``fqtk_tpu_torch.core``     — encoding, read structures, samples, headers.
+- ``fqtk_tpu_torch.io``       — the ctypes binding of ``native/fqtk_io.cpp``
+                                and the Python FASTQ / BGZF code.
+- ``fqtk_tpu_torch.ops``      — device compute: bit2 unpacking, the NumPy
+                                spec, the top-2 merge, the kernel plan, the
+                                Hopper kernels ``colmerge_top2`` and
+                                ``tile_top2`` with their plain PyTorch
+                                versions, the lab's kernels.
+- ``fqtk_tpu_torch.runtime``  — the demux pipeline with its native loop;
+                                subsample.
+- ``fqtk_tpu_torch.parallel`` — the shard merge (``concat-shards``).
+- ``fqtk_tpu_torch.lab``      — the big-K kernel lab.
 - ``fqtk_tpu_torch.cli``      — flag-compatible command line
                                 (``fqtk-tpu-torch``).
 
-The package imports ``torch`` and never ``jax``.
+The package imports ``torch``, never ``jax`` and nothing of ``fqtk_tpu``.
 """
 
 __version__ = "0.1.0"

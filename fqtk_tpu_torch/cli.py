@@ -1,9 +1,11 @@
 """Flag-compatible command line: ``fqtk-tpu-torch <demux|subsample|concat-shards>``.
 
-The same subcommands and flags as :mod:`fqtk_tpu.cli` (its parser is
-reused and relabelled), plus ``demux --device {cuda,cpu}``.  ``demux`` runs
-this package's runtime; ``subsample`` and ``concat-shards`` run the shared
-host functions of ``fqtk_tpu``, which never touch a device.  Flags whose
+The same subcommands, flags, defaults and help as ``fqtk_tpu/cli.py`` (the
+parser is the port's own copy, so that the JAX package's flag surface still
+parses: flags naming engines that are not ported are refused after
+parsing), plus ``demux --device {cuda,cpu}``.  ``demux`` runs this package's
+runtime; ``subsample`` and ``concat-shards`` run its host functions, which
+never touch a device.  Flags whose
 machinery is not ported yet fail with one collected error naming the
 ROADMAP item; they never run something else instead.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+from pathlib import Path
 from typing import List, Optional
 
 from . import __version__
@@ -21,23 +24,206 @@ PROG = "fqtk-tpu-torch"
 
 
 def _build_parser() -> argparse.ArgumentParser:
-    from fqtk_tpu.cli import _build_parser as _jax_parser
-
-    parser = _jax_parser()
-    parser.prog = PROG
-    parser.description = "FASTQ toolkit on PyTorch / CUDA (Hopper)"
-    subs = next(
-        a for a in parser._actions if isinstance(a, argparse._SubParsersAction)
+    parser = argparse.ArgumentParser(
+        prog=PROG, description="FASTQ toolkit on PyTorch / CUDA (Hopper)"
     )
-    for name, sub in subs.choices.items():
-        sub.prog = f"{PROG} {name}"
-        for action in sub._actions:
-            if isinstance(action, argparse._VersionAction):
-                action.version = f"{PROG} {name} {__version__}"
-    for action in parser._actions:
-        if isinstance(action, argparse._VersionAction):
-            action.version = f"{PROG} {__version__}"
-    subs.choices["demux"].add_argument(
+    parser.add_argument("--version", action="version", version=f"{PROG} {__version__}")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    demux = sub.add_parser(
+        "demux",
+        help="Performs sample demultiplexing on FASTQs.",
+        description=(
+            "Performs sample demultiplexing on FASTQs. The sample barcode for "
+            "each sample in the metadata TSV is compared against the sample "
+            "barcode bases extracted from the FASTQs to assign each read to a "
+            "sample; reads that do not match any sample within the given "
+            "error tolerance are placed in the unmatched-prefix files."
+        ),
+    )
+    demux.add_argument(
+        "--inputs", "-i", nargs="+", required=True, type=Path,
+        help="One or more input FASTQ files each corresponding to a "
+        "sequencing read (e.g. R1, I1).",
+    )
+    demux.add_argument(
+        "--read-structures", "-r", nargs="+", required=True,
+        help="The read structures, one per input FASTQ in the same order.",
+    )
+    demux.add_argument(
+        "--output-types", "-b", nargs="+", default=["T"],
+        help="The read structure types to write to their own files (one of "
+        "T, B, M, or C for template, sample barcode, molecular barcode, or "
+        "cellular barcode reads).",
+    )
+    demux.add_argument(
+        "--sample-metadata", "-s", required=True, type=Path,
+        help="A file containing the metadata about the samples (headered "
+        "TSV with sample_id and barcode columns).",
+    )
+    demux.add_argument(
+        "--output", "-o", required=True, type=Path,
+        help="The output directory into which to write per-sample FASTQs.",
+    )
+    demux.add_argument(
+        "--unmatched-prefix", "-u", default="unmatched",
+        help="Output prefix for FASTQ file(s) for reads that cannot be "
+        "matched to a sample.",
+    )
+    demux.add_argument(
+        "--max-mismatches", type=int, default=1,
+        help="Maximum mismatches for a barcode to be considered a match.",
+    )
+    demux.add_argument(
+        "--min-mismatch-delta", "-d", type=int, default=2,
+        help="Minimum difference between number of mismatches in the best "
+        "and second best barcodes for a barcode to be considered a match.",
+    )
+    demux.add_argument(
+        "--threads", "-t", type=int, default=8,
+        help="The number of threads to use. Cannot be less than 5.",
+    )
+    demux.add_argument(
+        "--compression-level", "-c", type=int, default=5,
+        help="The level of compression to use to compress outputs.",
+    )
+    demux.add_argument(
+        # nargs="+": a bare -S must be a parse error like clap's
+        # Vec<SkipReason> (an empty list would silently disable skipping)
+        "--skip-reasons", "-S", nargs="+", default=[],
+        help="Skip demultiplexing reads for any of the following reasons, "
+        "otherwise panic: 'too-few-bases' (too few bases/qualities to "
+        "extract given the read structures).",
+    )
+    # engine extensions (not in the reference CLI)
+    demux.add_argument(
+        "--batch-size", type=int, default=1 << 17,
+        help="Reads per device batch (engine extension).",
+    )
+    demux.add_argument(
+        "--engine",
+        choices=["auto", "native", "jax", "pallas", "numpy"],
+        default="auto",
+        help="Compute engine: auto = C++ host I/O + JAX matcher when "
+        "available (engine extension).",
+    )
+    demux.add_argument(
+        "--matcher",
+        choices=["auto", "host", "device"],
+        default="auto",
+        help="Assignment placement: auto measures one host window against "
+        "one device round-trip at the production batch and picks the "
+        "faster side (decision cached on disk; FQTK_HOST_MATCHER_MAX_K "
+        "pins a static whitelist-size crossover instead), huge whitelists "
+        "use the host pigeonhole matcher (engine extension).",
+    )
+    # per-subcommand --version, as clap's #[command(version)] provides
+    demux.add_argument(
+        "--version", action="version", version=f"{PROG} demux {__version__}"
+    )
+    demux.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        help="Device-mesh size for the matcher: default all local devices "
+        "(batch-parallel; whitelist-sharded for huge sample sets), 1 forces "
+        "single-device (engine extension).",
+    )
+    demux.add_argument(
+        "--distributed-coordinator",
+        default=None,
+        metavar="HOST:PORT",
+        help="Multi-host mode: jax.distributed coordinator address.  Each "
+        "process demuxes its own --inputs shard into "
+        "{output}/shard-{process_id}/ and the global demux-metrics.txt is "
+        "merged exactly across hosts (engine extension).",
+    )
+    demux.add_argument(
+        "--num-processes", type=int, default=None,
+        help="Multi-host mode: total process count.",
+    )
+    demux.add_argument(
+        "--process-id", type=int, default=None,
+        help="Multi-host mode: this process's id (0-based).",
+    )
+    demux.add_argument(
+        "--merge-output", action="store_true",
+        help="Multi-host mode: after all hosts finish, process 0 merges the "
+        "shard-N directories into single per-sample files at the output "
+        "root (BGZF block concatenation; also available offline as the "
+        "concat-shards subcommand) (engine extension).",
+    )
+
+    cs = sub.add_parser(
+        "concat-shards",
+        help="Merges a multi-host demux output's shard-N directories into "
+        "single per-sample FASTQs.",
+        description=(
+            "Merges {output}/shard-N/*.fq.gz (written by demux "
+            "--distributed-coordinator) into single per-sample files at the "
+            "output root. BGZF blocks are concatenated without "
+            "recompression; the merged files' decompressed contents are "
+            "identical to a single-process run over the concatenated "
+            "inputs."
+        ),
+    )
+    cs.add_argument(
+        "--output", "-o", required=True, type=Path,
+        help="The demux output directory containing shard-N subdirectories.",
+    )
+    cs.add_argument(
+        "--remove-shards", action="store_true",
+        help="Delete the shard-N directories after a successful merge.",
+    )
+    cs.add_argument(
+        "--version", action="version",
+        version=f"{PROG} concat-shards {__version__}",
+    )
+
+    ss = sub.add_parser(
+        "subsample", help="Subsamples reads from one or more synchronized FASTQ files."
+    )
+    ss.add_argument(
+        "--inputs", "-i", nargs="+", required=True, type=Path,
+        help="One or more input FASTQ files (may be gzipped). All files must "
+        "have the same number of reads in the same order.",
+    )
+    ss.add_argument(
+        "--output", "-o", required=True, type=Path,
+        help="Output path prefix. Files will be named {output}.R1.fq.gz, etc.",
+    )
+    ss.add_argument(
+        "--fraction", "-f", type=float, required=True,
+        help="Fraction of reads to retain, in the range [0.0, 1.0].",
+    )
+    ss.add_argument(
+        "--threads", "-t", type=int, default=8,
+        help="Number of threads for compression. Minimum 2.",
+    )
+    ss.add_argument(
+        "--compression-level", "-c", type=int, default=5,
+        help="BGZF compression level for output files.",
+    )
+    ss.add_argument(
+        "--seed",
+        "-s",
+        type=int,
+        default=None,
+        help=(
+            "Explicit RNG seed for reproducibility; with a seed the keep/drop "
+            "mask matches fqtk bit-for-bit.  When omitted a deterministic "
+            "seed is derived from all other parameters via the reference's "
+            "DefaultHasher (SipHash-1-3) derivation."
+        ),
+    )
+    ss.add_argument(
+        "--version", action="version", version=f"{PROG} subsample {__version__}"
+    )
+    ss.add_argument(
+        "--disable-read-name-checking", action="store_true",
+        help="Disable checking that read names are in sync across input files.",
+    )
+    demux.add_argument(
         "--device",
         choices=["cuda", "cpu"],
         default="cuda",
@@ -124,12 +310,12 @@ def _dispatch(args) -> int:
         run_demux(cfg)
         return 0
     if args.command == "concat-shards":
-        from fqtk_tpu.parallel.merge import concat_shards
+        from .parallel.merge import concat_shards
 
         concat_shards(args.output, remove_shards=args.remove_shards)
         return 0
     if args.command == "subsample":
-        from fqtk_tpu.runtime.subsample import SubsampleConfig, run_subsample
+        from .runtime.subsample import SubsampleConfig, run_subsample
 
         cfg = SubsampleConfig(
             inputs=list(args.inputs),

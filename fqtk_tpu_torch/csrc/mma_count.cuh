@@ -1,0 +1,548 @@
+// Tensor-core mismatch counting with an exact running top-2, for Hopper
+// (sm_90a).  The shared engine of csrc/colmerge_top2.cu (TPU kernel #1,
+// `kernel_colmerge`, fqtk_tpu/ops/pallas_matcher.py:373-440) and
+// csrc/tile_top2.cu (TPU kernel #2, `kernel`, :285-371): like the TPU bodies
+// it multiplies the one-hot of a row tile by a tile of the int8 mismatch
+// table on the matrix unit and keeps, per row, the two smallest
+// (count, column) keys.
+//
+// Function.  For read row b and whitelist column k < K,
+//   count[b, k] = sum_j onehot[b, j] * table[k, j]
+// where onehot[b, c*L + l] = (code of row b at position l == c) and
+// table[k, c*L + l] = 1 iff code c mismatches barcode k at position l.  Per
+// row the engine keeps m1 < m2, the two smallest keys
+//   key = count << shift | (column - col_base)
+// over the CTA's column range; keys are unique, so the smallest key is (best,
+// FIRST column reaching it) and the count of the second is `next`.
+//
+// Inputs
+//   obs   [B, W] uint8, W = ceil(L/4): four 2-bit codes per byte, lowest bit
+//         pair first (the native engine's "bit2").
+//   table int8, K_pad * KP bytes: the [K_pad, KP] mismatch table (a column's
+//         4L entries, zero-padded to the depth KP = 32 * ceil(4L/32) up to
+//         128, a multiple of 128 above) stored in the order the product
+//         reads it from shared memory, so that a stage is one contiguous
+//         copy.  As an array: [K_pad/128][KP/SB][16][SB/16][8][16] bytes,
+//         i.e. per sub-tile of 128 columns and depth slice of SB bytes (SB =
+//         KP up to 128, else 128), 16 groups of 8 columns, each group SB/16
+//         "core matrices" of 8 columns x 16 depth bytes (128 contiguous
+//         bytes).  That is wgmma's no-swizzle K-major layout of B with
+//         LBO = 128 bytes between depth-adjacent core matrices and SBO =
+//         SB/16 * 128 bytes between 8-column groups.  Packed once, when the
+//         state is built (hopper_matcher.pack_table_i8).  K_pad is a
+//         multiple of 128; columns >= K are all-ones pad columns, read but
+//         never taking part: the exact update masks columns >= K.
+//
+// What bounds it on this card, and the design's answer.
+// * Operations.  B x K x KP int8 MACs against 1,979 TOP/s dense: 59 (row,
+//   column) pairs per clock and SM at KP = 64, reached only by wgmma.  A CTA
+//   is two warpgroups of 64 rows; each runs
+//   wgmma.mma_async.m64n128k32.s32.s8.s8 with A (the one-hot, built once per
+//   CTA from the bit2 rows) in registers and B (128 columns x 32 bytes of the
+//   table) from shared memory.
+// * The top-2 must not eat the product's rate: at 59 pairs/clk/SM the 64
+//   integer lanes of an SM have about one operation per pair.  A key update
+//   (`m2 = min(m2, max(m1, key)); m1 = min(m1, key)` plus the key build) is
+//   five.  So the update runs behind a test: a thread holds 32 counts of a
+//   row per sub-tile, in four groups of 8; the minimum of each group and of
+//   the row by three-input minima (__vimin3_s32, 18 instructions) is
+//   compared with `thr`, the count of the row's running second key.
+//   Columns are visited in ascending order, so a count >= thr can never
+//   change m1 or m2 (its key is larger than m2's, whose column came
+//   earlier): the test is exact, not a heuristic.  Only when it fires does
+//   the thread build keys, and only for the groups whose own minimum
+//   passed.  A warpgroup waits for its product before it tests the counts
+//   (ptxas serializes wgmma when other instructions read one accumulator
+//   set while a product into a second set is in flight), so the overlap of
+//   products and tests comes from the four warpgroups an SM holds: two CTAs
+//   of under 128 registers a thread.
+// * Bytes.  The table is read once per CTA: 64 bytes per column per 128
+//   rows at KP = 64, from L2 (blockIdx runs over row tiles first, so the
+//   CTAs in flight walk the same columns).  Staged with 16-byte cp.async
+//   requests this traffic, not the product, set the kernel's time (about
+//   2 TB/s whatever the table's size).  So a stage is ONE bulk copy
+//   (cp.async.bulk, the 1-D form of TMA) started by one thread, which
+//   completes on an mbarrier: a ring of three or four stages of 256
+//   columns, the copies of the next stages in flight while stage s is
+//   multiplied.
+// * Fill.  The wrapper splits K into `n_chunks` column ranges (multiples of
+//   128 columns) where the row tiles alone do not fill the SMs; each (row
+//   tile, chunk) is a CTA and the chunks of a row meet in a second pass.
+//
+// The 4 threads of a quad hold disjoint columns of the same row; their
+// (m1, m2) pairs meet at the end by shuffles with the key merge
+// `m2 = min(min(m2, o2), max(m1, o1)); m1 = min(m1, o1)`.
+//
+// Besides the engine (count_top2) the header holds what the two kernels'
+// first passes share: the pass-1 kernel over a (row tile, chunk) grid, which
+// differs per scheme only in the key's column base and in what a row writes
+// (a `Scheme`), its launch by table depth, and the argument checks.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+namespace mmac {
+
+constexpr int kThreads = 256;    // two warpgroups
+constexpr int kRows = 128;       // rows per CTA, 64 per warpgroup
+constexpr int kSub = 128;        // columns per wgmma (n128)
+constexpr int kStageSubs = 2;    // sub-tiles per stage of the main loop
+constexpr int kSliceStages = 8;  // ring depth of the sliced loop (16 KB each)
+constexpr int kMaxRing = 8;      // mbarriers a CTA holds
+constexpr int kBitStride = 33;   // words per row of the sliced loop's one-hot
+constexpr int32_t kMaxCount = 255;
+constexpr int32_t kKeyInit = 0x7fffffff;
+
+// Ring depth of the main loop: 96 KB of stages at most, so that two CTAs
+// share an SM's shared memory at every depth.
+__host__ __device__ constexpr int ring_stages(int nk1) {
+  return nk1 <= 3 ? 4 : 3;
+}
+
+// Bytes of dynamic shared memory a kernel instantiation needs.
+__host__ __device__ constexpr int smem_bytes(int nk1, bool multi) {
+  return multi ? kSliceStages * kSub * 32 * nk1 + kRows * kBitStride * 4
+               : ring_stages(nk1) * kStageSubs * kSub * 32 * nk1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// --- mbarriers and the bulk copy that completes on one ---------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bars, int n) {
+  for (int i = 0; i < n; ++i)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+        smem_u32(bars + i)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned; `bar` completes its current phase when they have landed.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE_%=;\nbra WAIT_%=;\nDONE_%=:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// --- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator across a wait.
+__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a B sub-tile in the no-swizzle K-major
+// layout: start address, LBO = 128 bytes between depth-adjacent core
+// matrices, SBO = `sbo` bytes between 8-column groups (16-byte units).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fffu) | ((uint64_t)(128u >> 4) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
+}
+
+// d (+)= a[64 x 32] * b[32 x 128]: a from registers (rows g, g + 8 of the
+// warp's 16; depth t*4.. and 16 + t*4..), b by descriptor.  scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_n128(int32_t (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// --- the one-hot (A) -------------------------------------------------------
+
+// Bits j0 .. j0 + 3 of a one-hot bit word (j0 a multiple of 4) as four int8
+// 0/1 values in one register, lowest byte first.
+__device__ __forceinline__ uint32_t onehot_bytes(uint32_t word, int j0) {
+  const uint32_t nib = (word >> (j0 & 31)) & 0xFu;
+  return (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) |
+         ((nib & 8u) << 21);
+}
+
+// The A fragment of one k32 step from the one-hot bit words of the thread's
+// two rows (lo: row g, hi: row g + 8), t = lane & 3.
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], uint32_t lo,
+                                       uint32_t hi, int t) {
+  a[0] = onehot_bytes(lo, t * 4);
+  a[1] = onehot_bytes(hi, t * 4);
+  a[2] = onehot_bytes(lo, 16 + t * 4);
+  a[3] = onehot_bytes(hi, 16 + t * 4);
+}
+
+// Bit word w of the class-major one-hot (bit c*L + l) of a bit2 row.
+__device__ __forceinline__ uint32_t onehot_word(const uint8_t* __restrict__ o,
+                                                int length, int w) {
+  uint32_t word = 0u;
+  for (int l = 0; l < length; ++l) {
+    const int bit = ((o[l >> 2] >> ((l & 3) * 2)) & 3) * length + l;
+    word |= ((bit >> 5) == w) ? (1u << (bit & 31)) : 0u;
+  }
+  return word;
+}
+
+// The NW <= 4 bit words of a bit2 row of at most 8 bytes (L <= 32), read
+// once; the word is selected by compare so the array stays in registers.
+template <int NW>
+__device__ __forceinline__ void onehot_words(const uint8_t* __restrict__ o,
+                                             int width, int length,
+                                             uint32_t (&words)[NW]) {
+  uint64_t codes = 0;
+  for (int i = 0; i < width; ++i) codes |= (uint64_t)o[i] << (8 * i);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) words[w] = 0u;
+  for (int l = 0; l < length; ++l) {
+    const int bit = (int)((codes >> (2 * l)) & 3) * length + l;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      words[w] |= ((bit >> 5) == w) ? (1u << (bit & 31)) : 0u;
+  }
+}
+
+// --- the running top-2 -----------------------------------------------------
+
+// The two smallest keys of the thread's two rows over its columns.
+struct RowTop2 {
+  int32_t m1[2], m2[2], thr[2];
+  const int shift;
+  const int64_t col_base, k;
+
+  __device__ RowTop2(int shift_, int64_t col_base_, int64_t k_)
+      : shift(shift_), col_base(col_base_), k(k_) {
+    m1[0] = m1[1] = m2[0] = m2[1] = kKeyInit;
+    thr[0] = thr[1] = kKeyInit;  // above any count: the first sub-tile updates
+  }
+
+  // Exact update of row RR (0: row g, 1: row g + 8) from group Q of the 32
+  // counts the thread holds of a sub-tile whose first column is cb: the 8
+  // counts of n8 blocks 4Q .. 4Q + 3.  t = lane & 3.
+  template <int RR, int Q>
+  __device__ __forceinline__ void update(const int32_t (&d)[64], int64_t cb,
+                                         int t) {
+#pragma unroll
+    for (int j = 4 * Q; j < 4 * Q + 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int32_t cnt = d[4 * j + 2 * RR + e];
+        const int64_t col = cb + 8 * j + 2 * t + e;
+        if (cnt < thr[RR] && col < k) {
+          const int32_t key = (cnt << shift) | (int32_t)(col - col_base);
+          m2[RR] = min(m2[RR], max(m1[RR], key));
+          m1[RR] = min(m1[RR], key);
+        }
+      }
+    }
+    // a stale (larger) thr inside the group only lets more counts in: the
+    // key update itself is exact
+    thr[RR] = m2[RR] == kKeyInit ? kKeyInit : (m2[RR] >> shift);
+  }
+
+  template <int RR>
+  __device__ __forceinline__ void visit_row(const int32_t (&d)[64], int64_t cb,
+                                            int t) {
+    int32_t g[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int o = 16 * q + 2 * RR;
+      g[q] = __vimin3_s32(__vimin3_s32(d[o], d[o + 1], d[o + 4]),
+                          __vimin3_s32(d[o + 5], d[o + 8], d[o + 9]),
+                          min(d[o + 12], d[o + 13]));
+    }
+    if (min(__vimin3_s32(g[0], g[1], g[2]), g[3]) < thr[RR]) {
+      if (g[0] < thr[RR]) update<RR, 0>(d, cb, t);
+      if (g[1] < thr[RR]) update<RR, 1>(d, cb, t);
+      if (g[2] < thr[RR]) update<RR, 2>(d, cb, t);
+      if (g[3] < thr[RR]) update<RR, 3>(d, cb, t);
+    }
+  }
+
+  // The sub-tile's counts against the rows' running second count.
+  __device__ __forceinline__ void visit(int32_t (&d)[64], int64_t cb, int t) {
+    fence_acc(d);
+    visit_row<0>(d, cb, t);
+    visit_row<1>(d, cb, t);
+  }
+
+  // Fold the quad's four column subsets: afterwards every lane of the quad
+  // holds the rows' (m1, m2) over all of the CTA's columns.
+  __device__ __forceinline__ void fold_quad() {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const int32_t o1 = __shfl_xor_sync(0xffffffffu, m1[rr], off);
+        const int32_t o2 = __shfl_xor_sync(0xffffffffu, m2[rr], off);
+        m2[rr] = min(min(m2[rr], o2), max(m1[rr], o1));
+        m1[rr] = min(m1[rr], o1);
+      }
+    }
+  }
+};
+
+// --- the engine ------------------------------------------------------------
+
+// The two smallest keys of each of the CTA's 128 rows over columns
+// [c_begin, c_end) (multiples of 128, c_end <= K_pad; columns >= k masked).
+// `smem` is the kernel's dynamic shared memory, 128-byte aligned.  On return
+// every lane holds its rows' folded pairs in `top`; rows are row0 +
+// warp_in_cta * 16 + (lane >> 2) and that + 8.
+//
+// NK1 k32 steps per depth slice; MULTI = false: the whole depth (KP = 32 *
+// NK1) is one slice, A stays in registers.  MULTI = true (NK1 = 4): KP is a
+// multiple of 128, the depth is walked in slices of 128 bytes with the
+// one-hot bit words in shared memory.
+template <int NK1, bool MULTI>
+__device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
+                                           int64_t b, int width, int length,
+                                           const uint8_t* __restrict__ table,
+                                           int kp, int64_t c_begin,
+                                           int64_t c_end, int64_t row0,
+                                           uint8_t* smem, RowTop2& top) {
+  constexpr int kSliceBytes = 32 * NK1;
+  constexpr int kSubBytes = kSub * kSliceBytes;
+  constexpr uint32_t kSbo = 2 * NK1 * 128;
+  __shared__ __align__(8) uint64_t bars[kMaxRing];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
+  const uint32_t sbase = smem_u32(smem);
+  if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
+  int32_t acc[64];
+
+  if constexpr (!MULTI) {
+    constexpr int kStageBytes = kStageSubs * kSubBytes;
+    constexpr int kStageCols = kStageSubs * kSub;
+    constexpr int kRing = ring_stages(NK1);
+    uint32_t a[NK1][4];
+    {
+      uint32_t lo[NK1], hi[NK1];
+#pragma unroll
+      for (int ks = 0; ks < NK1; ++ks) lo[ks] = hi[ks] = 0u;
+      if (r_lo < b) onehot_words<NK1>(obs + r_lo * width, width, length, lo);
+      if (r_hi < b) onehot_words<NK1>(obs + r_hi * width, width, length, hi);
+#pragma unroll
+      for (int ks = 0; ks < NK1; ++ks) a_frag(a[ks], lo[ks], hi[ks], t);
+    }
+    __syncthreads();  // the mbarriers are initialized
+    const int n_stages = (int)((c_end - c_begin + kStageCols - 1) / kStageCols);
+    auto fill = [&](int s) {  // thread 0: stage s is one contiguous copy
+      const int64_t c0 = c_begin + (int64_t)s * kStageCols;
+      const int ncols = (int)min((int64_t)kStageCols, c_end - c0);
+      bulk_load(sbase + (s % kRing) * kStageBytes, table + c0 * kp,
+                (uint32_t)ncols * kSliceBytes, smem_u32(bars + s % kRing));
+    };
+    if (threadIdx.x == 0)
+      for (int s = 0; s < kRing - 1 && s < n_stages; ++s) fill(s);
+    for (int s = 0; s < n_stages; ++s) {
+      mbar_wait(smem_u32(bars + s % kRing), (s / kRing) & 1);
+      __syncthreads();  // stage s has landed; stage s - 1 has been multiplied
+      if (threadIdx.x == 0 && s + kRing - 1 < n_stages) fill(s + kRing - 1);
+      const int64_t c0 = c_begin + (int64_t)s * kStageCols;
+      const int nsub = (int)min((int64_t)kStageCols, c_end - c0) / kSub;
+      const uint32_t st = sbase + (s % kRing) * kStageBytes;
+      for (int j = 0; j < nsub; ++j) {
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < NK1; ++ks)
+          wgmma_n128(acc, a[ks], b_desc(st + j * kSubBytes + ks * 256, kSbo),
+                     ks);
+        wgmma_commit();
+        wgmma_wait<0>();
+        top.visit(acc, c0 + j * kSub, t);
+      }
+    }
+  } else {
+    static_assert(!MULTI || NK1 == 4, "sliced depth walks 128 bytes a slice");
+    const int n_slices = kp / kSliceBytes;
+    const int nw = n_slices * NK1;  // one-hot bit words per row, <= 32
+    uint32_t* bits =
+        reinterpret_cast<uint32_t*>(smem + kSliceStages * kSubBytes);
+    for (int q = threadIdx.x; q < kRows * nw; q += kThreads) {
+      const int r = q / nw, w = q - r * nw;
+      bits[r * kBitStride + w] =
+          row0 + r < b ? onehot_word(obs + (row0 + r) * width, length, w) : 0u;
+    }
+    __syncthreads();  // the mbarriers are initialized, the bit words written
+    // unit u = (sub-tile, depth slice), slices innermost: units are
+    // consecutive 16 KB blocks of the table
+    const int64_t n_units = (c_end - c_begin) / kSub * n_slices;
+    const uint8_t* src = table + c_begin * kp;
+    auto fill = [&](int64_t u) {
+      const int slot = (int)(u % kSliceStages);
+      bulk_load(sbase + slot * kSubBytes, src + u * kSubBytes, kSubBytes,
+                smem_u32(bars + slot));
+    };
+    if (threadIdx.x == 0)
+      for (int s = 0; s < kSliceStages - 1 && s < n_units; ++s) fill(s);
+    const uint32_t* lo_bits = bits + (warp * 16 + g) * kBitStride;
+    const uint32_t* hi_bits = lo_bits + 8 * kBitStride;
+    for (int64_t u = 0; u < n_units; ++u) {
+      const int slot = (int)(u % kSliceStages);
+      mbar_wait(smem_u32(bars + slot), (uint32_t)(u / kSliceStages) & 1u);
+      __syncthreads();  // unit u has landed; unit u - 1 has been multiplied
+      if (threadIdx.x == 0 && u + kSliceStages - 1 < n_units)
+        fill(u + kSliceStages - 1);
+      const int64_t sub = u / n_slices;
+      const int sl = (int)(u - sub * n_slices);
+      const uint32_t st = sbase + slot * kSubBytes;
+      uint32_t a[NK1][4];
+#pragma unroll
+      for (int ks = 0; ks < NK1; ++ks)
+        a_frag(a[ks], lo_bits[sl * NK1 + ks], hi_bits[sl * NK1 + ks], t);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < NK1; ++ks)
+        wgmma_n128(acc, a[ks], b_desc(st + ks * 256, kSbo), (sl | ks) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (sl == n_slices - 1) top.visit(acc, c_begin + sub * kSub, t);
+    }
+  }
+  top.fold_quad();
+}
+
+// The depth KP the table carries for barcode length `length`.
+inline int depth_of(int length) {
+  const int d = (4 * length + 31) / 32 * 32;
+  return d <= 128 ? d : (d + 127) / 128 * 128;
+}
+
+// --- pass 1 of both kernels -------------------------------------------------
+
+// What a pass-1 launch is given.  `partial` is [2, n_chunks, B] int32; the
+// three outputs are written by pass 1 only where the scheme says so.
+struct Pass1Args {
+  const uint8_t* obs;
+  int64_t b;
+  int width, length;
+  const uint8_t* table;
+  int kp;
+  int64_t k, cols_per_cta, n_row_tiles;
+  int n_chunks, shift;
+  int32_t *partial, *best, *idx, *next;
+};
+
+// CTA = 128 rows x one of `n_chunks` column ranges of `cols_per_cta` columns.
+// blockIdx runs over the row tiles of one chunk first, so the CTAs in flight
+// walk the same columns.  Scheme::kLocalKeys: keys hold the column inside
+// the chunk (else the global column); Scheme::emit(args, chunk, row, m1, m2)
+// writes a row's pair.
+template <class Scheme, int NK1, bool MULTI>
+__global__ void __launch_bounds__(kThreads, 2) top2_pass1(const Pass1Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int64_t row_tile = blockIdx.x % a.n_row_tiles;
+  const int64_t chunk = blockIdx.x / a.n_row_tiles;
+  const int64_t k_sub = (a.k + kSub - 1) / kSub * kSub;
+  const int64_t c_begin = chunk * a.cols_per_cta;
+  const int64_t c_end = min(k_sub, c_begin + a.cols_per_cta);
+  const int64_t row0 = row_tile * kRows;
+
+  RowTop2 top(a.shift, Scheme::kLocalKeys ? c_begin : 0, a.k);
+  count_top2<NK1, MULTI>(a.obs, a.b, a.width, a.length, a.table, a.kp, c_begin,
+                         c_end, row0, smem, top);
+
+  const int lane = threadIdx.x & 31;
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t row = row0 + (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * rr;
+    if (row < a.b) Scheme::emit(a, chunk, row, top.m1[rr], top.m2[rr]);
+  }
+}
+
+template <class Scheme, int NK1, bool MULTI>
+cudaError_t launch_pass1_at(const Pass1Args& a, cudaStream_t s) {
+  constexpr int kSmem = smem_bytes(NK1, MULTI);
+  auto kern = top2_pass1<Scheme, NK1, MULTI>;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<(unsigned)(a.n_row_tiles * a.n_chunks), kThreads, kSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Pass 1 at the instantiation the table's depth asks for.
+template <class Scheme>
+cudaError_t launch_pass1(const Pass1Args& a, cudaStream_t s) {
+  switch (a.kp) {
+    case 32: return launch_pass1_at<Scheme, 1, false>(a, s);
+    case 64: return launch_pass1_at<Scheme, 2, false>(a, s);
+    case 96: return launch_pass1_at<Scheme, 3, false>(a, s);
+    case 128: return launch_pass1_at<Scheme, 4, false>(a, s);
+    default: return launch_pass1_at<Scheme, 4, true>(a, s);
+  }
+}
+
+// The checks both entry points make of their arguments: 0, or the negative
+// code the entry point returns (-1 a shape, -2 the table's alignment, -3 a
+// grid beyond 2^31 - 1 CTAs).
+inline int check_args(int64_t b, int width, const void* table, int64_t k_pad,
+                      int kp, int64_t k, int length, int n_chunks,
+                      int64_t cols_per_cta) {
+  if (b <= 0 || k < 1 || length < 1 || length > 255 ||
+      width != (length + 3) / 4 || kp != depth_of(length) || k_pad < k ||
+      k_pad % kSub != 0 || n_chunks < 1 || cols_per_cta < kSub ||
+      cols_per_cta % kSub != 0 || n_chunks * cols_per_cta < k ||
+      (n_chunks - 1) * cols_per_cta >= k)
+    return -1;
+  if ((reinterpret_cast<uintptr_t>(table) & 15u) != 0) return -2;
+  if ((b + kRows - 1) / kRows * n_chunks > 0x7fffffffLL) return -3;
+  return 0;
+}
+
+}  // namespace mmac
+}  // namespace

@@ -50,17 +50,22 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from fqtk_tpu.ops.pallas_matcher import plan_local_kernel
-
 from ..ops.hopper_matcher import (
     ColmergeTop2,
     colmerge_top2_reference,
     hopper_state_from_numpy,
-    pack_compat_bits,
     resolve_device,
 )
-from ..ops.lab_kernels import LAB_KERNELS, LabKernel, LabParams, lab_params, mma_depth
+from ..ops.lab_kernels import (
+    LAB_KERNELS,
+    LabKernel,
+    LabParams,
+    lab_params,
+    mma_depth,
+    pack_compat_bits,
+)
 from ..ops.matcher import ExpectedSet
+from ..ops.plan import plan_local_kernel
 
 #: the JAX lab's default specs (``kernel_lab.py:590-597``), then every other
 #: ported variant

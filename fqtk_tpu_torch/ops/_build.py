@@ -4,7 +4,7 @@
   ``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
   interface (one nvcc per source, all started together).
 - :func:`ensure_native_engine` makes sure the shared host I/O engine
-  (``native/fqtk_io.cpp``, bound by :mod:`fqtk_tpu.io.native`) loads, by
+  (``native/fqtk_io.cpp``, bound by :mod:`fqtk_tpu_torch.io.native`) loads, by
   building it here when the committed binary does not.
 
 Both builds go into ``build/fqtk_tpu_torch/`` at the repository root
@@ -45,20 +45,17 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: argument types of each kernel's entry point ``fqtk_<source stem>``; every
 #: entry point returns an int status (0 on success)
 ENTRY_POINTS = {
-    "colmerge_top2": [
-        _P, _I64, _I32,  # obs, b, width
-        _P, _I64, _I32, _I32,  # compat, k_pad, k, length
-        _I32,  # ksplit
-        _P, _P, _P,  # best, idx, next
-        _P,  # stream
-    ],
-    "tile_top2": [
-        _P, _I64, _I32,  # obs, b, width
-        _P, _I64, _I32, _I32, _I32,  # bits, k_pad, nw, k, length
-        _P,  # partial
-        _P, _P, _P,  # best, idx, next
-        _P,  # stream
-    ],
+    **{
+        stem: [
+            _P, _I64, _I32,  # obs, b, width
+            _P, _I64, _I32, _I64, _I32,  # table, k_pad, kp, k, length
+            _I32, _I64,  # n_chunks, cols_per_cta
+            _P,  # partial
+            _P, _P, _P,  # best, idx, next
+            _P,  # stream
+        ]
+        for stem in ("colmerge_top2", "tile_top2")
+    },
     # the kernel lab (ops/lab_kernels.py)
     "lab_probe": [
         _P, _I64, _I32,  # obs, b, width
@@ -189,7 +186,7 @@ def _dlopen_ok(path: Path) -> bool:
 
 
 def ensure_native_engine() -> None:
-    """Make :func:`fqtk_tpu.io.native.available` true or raise.
+    """Make :func:`fqtk_tpu_torch.io.native.available` true or raise.
 
     The committed ``native/libfqtk_io.so`` links ``libdeflate.so.0`` and was
     built ``-march=native`` on another host; where it does not load, build
@@ -197,7 +194,7 @@ def ensure_native_engine() -> None:
     libdeflate only where the header resolves) and point
     ``FQTK_NATIVE_LIB`` at the result before the first ``get_lib()``.
     Never falls back to a slower engine."""
-    from fqtk_tpu.io import native as native_io
+    from ..io import native as native_io
 
     if not os.environ.get("FQTK_NATIVE_LIB") and not _dlopen_ok(
         native_io._LIB_PATH

@@ -3,7 +3,7 @@
 Counterpart of :mod:`fqtk_tpu.ops.device_encoding`.  There the byte -> mask
 conversion is a chain of ~20 compares because gathers were slow on the TPU;
 on a GPU (and on the CPU) one index into the 256-entry
-:data:`fqtk_tpu.core.encoding.ENCODE_LUT` is the plain way, with the same
+:data:`fqtk_tpu_torch.core.encoding.ENCODE_LUT` is the plain way, with the same
 semantics:
 
 - no-call bytes ``N``/``n``/``.`` -> 15
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fqtk_tpu.core.encoding import ENCODE_LUT, NOCALL_LUT
+from ..core.encoding import ENCODE_LUT, NOCALL_LUT
 
 
 def _lut(table: np.ndarray, device: torch.device) -> torch.Tensor:

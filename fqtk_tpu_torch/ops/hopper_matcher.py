@@ -10,11 +10,13 @@ the device (the engine flags them and the driver resolves them on the host,
 no-call gate included).
 
 - :func:`hopper_scheme` — which kernel runs, chosen as
-  :func:`~fqtk_tpu.ops.pallas_matcher.plan_local_kernel` chooses the TPU
+  :func:`~fqtk_tpu_torch.ops.plan.plan_local_kernel` chooses the TPU
   kernel's top-2 scheme at the JAX package's single-chip tiling.
-- :func:`hopper_state_from_numpy` — the whitelist as device state: the one
-  table that the scheme's kernel reads (the class-major int8 mismatch
-  table, or its bit-packed copy), built on the device once.
+- :func:`hopper_state_from_numpy` — the whitelist as device state: the
+  table both kernels' tensor-core product reads (the int8 ``[K_pad, KP]``
+  class-major mismatch table, zero-padded in depth, tiled in the order the
+  product reads it from shared memory), packed on the device once.
+- :func:`plan_chunks` — how a launch splits K across CTAs.
 - :func:`colmerge_top2_reference` / :func:`tile_top2_reference` — the plain
   versions (float32 one-hot matmul + top-2 merges).
 - :class:`ColmergeTop2` / :class:`TileTop2` — the kernels' wrappers: on a
@@ -33,19 +35,32 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fqtk_tpu.ops.matcher import MAX_COUNT, ExpectedSet
-from fqtk_tpu.ops.pallas_matcher import _compat_classmajor, plan_local_kernel
-
 from ._build import load_kernel
 from .device_encoding import unpack_bit2
-from .matcher import Top2, chunk_top2, merge_top2
+from .matcher import MAX_COUNT, ExpectedSet, Top2, chunk_top2, merge_top2
+from .plan import _compat_classmajor, plan_local_kernel
 
-#: whitelist columns are padded to a multiple of this in the device tables
-#: (row alignment only: the kernels never read a column >= K)
+#: whitelist columns are padded to a multiple of this in the device table:
+#: the columns of one ``wgmma`` (csrc/mma_count.cuh kSub).  Pad columns are
+#: all ones; the kernels read them but mask every column >= K
 K_ALIGN = 128
 
 #: colmerge_top2's key holds count (8 bits) << column bits in an int32
 MAX_K = 1 << 23
+
+#: tile_top2's key holds count (8 bits) << the bits of the column inside a
+#: CTA's K tile: the largest K tile
+MAX_TILE_COLS = 1 << 23
+
+#: rows per CTA of both kernels (csrc/mma_count.cuh kRows)
+ROWS_PER_CTA = 128
+
+#: CTAs of either kernel that share an SM (registers and shared memory)
+CTAS_PER_SM = 2
+
+#: fewest 128-column sub-tiles a CTA keeps when K is split: below that the
+#: split's second pass costs more than the idle SMs
+MIN_CHUNK_SUBS = 16
 
 #: the JAX package's single-chip tiling (``fqtk_tpu.runtime.demux``,
 #: ``_build_device_assign_fn``): the plan at this tiling picks the kernel
@@ -53,18 +68,13 @@ _PLAN = dict(tile_b=512, tile_k=2048, packed2=True, mxu_dtype="int8")
 
 SCHEMES = ("colmerge_top2", "tile_top2")
 
-#: tile_top2's K tile (csrc/tile_top2.cu kTileK); its plain version uses the
-#: same tiles
+#: the K tile of tile_top2's plain version (the kernel's K tile is the
+#: launch's ``cols_per_cta``, :func:`plan_chunks`; the result does not depend
+#: on the tiling)
 TILE_K = 1 << 13
 
 #: largest [B, kc] float32 block a plain version materializes
 _PLAIN_CHUNK_ELEMS = 1 << 27  # 512 MiB of float32
-
-#: largest tile_top2 partial buffer ([n_tiles, rows] uint32) per launch;
-#: larger batches launch in row chunks
-_PARTIAL_MAX_BYTES = 1 << 30
-
-_THREADS = 256  # kThreads of both kernels
 
 _ROADMAP_INPUTS = (
     "only packed2 (bit2) input is ported; nib4 and raw-byte inputs are "
@@ -105,9 +115,10 @@ class HopperState:
     ``scheme``'s kernel and its plain version read."""
 
     scheme: str
-    #: ``colmerge_top2``: ``[4L, k_pad]`` int8, class-major rows ``c*L + l``;
-    #: ``tile_top2``: ``[k_pad, ceil(4L/32)]`` uint32, bit ``c*L + l`` of
-    #: the same table
+    #: int8, the ``[k_pad, KP]`` mismatch table (entry ``c*L + l`` of column
+    #: k is 1 iff code c mismatches barcode k at position l; ``KP`` is
+    #: :func:`table_depth`, the entries from ``4L`` on are 0) in the tiled
+    #: order of :func:`pack_table_i8`; :func:`table_columns` reads it back
     table: torch.Tensor
     k: int
     length: int
@@ -116,24 +127,56 @@ class HopperState:
 
     @property
     def k_pad(self) -> int:
-        return int(self.table.shape[1 if self.scheme == "colmerge_top2" else 0])
+        return int(self.table.shape[0]) * K_ALIGN
 
 
-def pack_compat_bits(compat: torch.Tensor) -> torch.Tensor:
-    """``[4L, K_pad]`` 0/1 int8 -> ``[K_pad, ceil(4L/32)]`` uint32 with bit
-    ``j % 32`` of word ``j // 32`` of column k equal to ``compat[j, k]``
-    (plain torch ops on ``compat``'s device, once per state)."""
+def table_depth(length: int) -> int:
+    """Depth ``KP`` of the device table for barcode length ``length``: ``4L``
+    rounded up to the 32 bytes of one ``wgmma`` k-step, and above 128 to a
+    multiple of 128 (the kernels then walk the depth in slices of 128;
+    csrc/mma_count.cuh ``depth_of``)."""
+    d = -(-4 * length // 32) * 32
+    return d if d <= 128 else -(-d // 128) * 128
+
+
+def _slice_bytes(kp: int) -> int:
+    """Depth bytes of one staged slice: all of ``KP`` up to 128, else 128."""
+    return kp if kp <= 128 else 128
+
+
+def pack_table_i8(compat: torch.Tensor) -> torch.Tensor:
+    """``[4L, K_pad]`` 0/1 int8 (class-major rows ``c*L + l``; ``K_pad`` a
+    multiple of :data:`K_ALIGN`) -> the kernels' table, int8
+    ``[K_pad/128, KP/SB, 16, SB/16, 8, 16]``, contiguous.
+
+    It is the ``[K_pad, KP]`` table (column k's ``4L`` entries in a row,
+    zero-padded to :func:`table_depth`) cut into sub-tiles of 128 columns and
+    depth slices of ``SB`` bytes, each stored as ``wgmma`` reads a K-major
+    B tile without swizzle: 16 groups of 8 columns, each ``SB/16`` core
+    matrices of 8 columns x 16 depth bytes.  Entry ``j`` of column ``k`` is
+    ``table[k // 128, j // SB, k % 128 // 8, j % SB // 16, k % 8, j % 16]``.
+    A stage of the kernels' ring is then one contiguous block (plain torch
+    ops on ``compat``'s device, once per state)."""
     wl, k_pad = compat.shape
-    words = []
-    for w0 in range(0, wl, 32):
-        acc = torch.zeros(k_pad, dtype=torch.int64, device=compat.device)
-        for j in range(w0, min(wl, w0 + 32)):
-            acc |= compat[j].to(torch.int64) << (j - w0)
-        words.append(acc)
-    words = torch.stack(words, dim=1)
-    # the same 32 bits as int32 (two's complement), viewed as uint32
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return words.to(torch.int32).view(torch.uint32)
+    if k_pad % K_ALIGN:
+        raise ValueError(f"K_pad={k_pad} is not a multiple of {K_ALIGN}")
+    kp = table_depth(wl // 4)
+    sb = _slice_bytes(kp)
+    flat = torch.zeros((k_pad, kp), dtype=torch.int8, device=compat.device)
+    flat[:, :wl] = compat.T
+    tiled = flat.view(k_pad // K_ALIGN, 16, 8, kp // sb, sb // 16, 16)
+    return tiled.permute(0, 3, 1, 4, 2, 5).contiguous()
+
+
+def table_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
+    """``[wl, k1 - k0]`` float32 0/1: columns ``k0 .. k1 - 1`` of the
+    class-major mismatch table that ``table`` (:func:`pack_table_i8`) holds."""
+    s0, s1 = k0 // K_ALIGN, -(-k1 // K_ALIGN)
+    n_sub, n_slices, _, chunks, _, _ = table.shape
+    flat = table[s0:s1].permute(0, 2, 4, 1, 3, 5).reshape(
+        (s1 - s0) * K_ALIGN, n_slices * chunks * 16
+    )
+    return flat[k0 - s0 * K_ALIGN:k1 - s0 * K_ALIGN, :wl].T.to(torch.float32)
 
 
 def hopper_state_from_numpy(
@@ -141,23 +184,25 @@ def hopper_state_from_numpy(
     device: Union[str, torch.device],
     scheme: Optional[str] = None,
 ) -> HopperState:
-    """The table ``scheme``'s kernel reads (default: :func:`hopper_scheme`),
-    built on ``device`` once from the class-major 0/1 int8 mismatch table of
-    ``expected.masks`` (the JAX kernel's ``compat_for_plan`` table before
-    its ``ck_s2`` scale), padded with all-ones columns to a multiple of
-    :data:`K_ALIGN`: that table for ``colmerge_top2``, its
-    :func:`pack_compat_bits` copy for ``tile_top2``."""
+    """The state of ``scheme`` (default: :func:`hopper_scheme`): the table
+    both kernels read, packed on ``device`` once (:func:`pack_table_i8`)
+    from the class-major 0/1 int8 mismatch table of ``expected.masks`` (the
+    JAX kernel's ``compat_for_plan`` table before its ``ck_s2`` scale),
+    padded with all-ones columns to a multiple of :data:`K_ALIGN`.
+    ``expected`` is this package's ``ExpectedSet`` or any object with its
+    ``masks`` (numpy ``[K, L]`` uint8), ``count``, ``length`` and
+    ``max_ns_in_barcodes``, e.g. the JAX package's."""
     dev = resolve_device(device)
     k, length = expected.count, expected.length
     scheme = scheme or hopper_scheme(k, length)
     if scheme not in SCHEMES:
         raise ValueError(f"scheme must be one of {SCHEMES}, got {scheme!r}")
     k_pad = -(-k // K_ALIGN) * K_ALIGN
-    table = torch.from_numpy(
-        np.ascontiguousarray(_compat_classmajor(expected.masks, k_pad, 4))
-    ).to(dev)
-    if scheme == "tile_top2":
-        table = pack_compat_bits(table)
+    table = pack_table_i8(
+        torch.from_numpy(
+            np.ascontiguousarray(_compat_classmajor(expected.masks, k_pad, 4))
+        ).to(dev)
+    )
     return HopperState(
         scheme=scheme,
         table=table,
@@ -178,20 +223,23 @@ def _onehot_f32(obs_bit2: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _top2_init(b: int, k: int, dev: torch.device) -> Top2:
+    """The running triple before the first chunk.  ``best`` starts above any
+    count, so the first chunk is always taken (a row whose smallest count is
+    255 still reports that count's first column, as the NumPy spec does)."""
     return (
-        torch.full((b,), MAX_COUNT, dtype=torch.int32, device=dev),
+        torch.full((b,), MAX_COUNT + 1, dtype=torch.int32, device=dev),
         torch.full((b,), k, dtype=torch.int32, device=dev),
         torch.full((b,), MAX_COUNT, dtype=torch.int32, device=dev),
     )
 
 
 def colmerge_top2_reference(
-    obs_bit2: torch.Tensor, compat: torch.Tensor, k: int, length: int
+    obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
 ) -> Top2:
     """Plain PyTorch version of ``colmerge_top2`` (same signature and
     results).
 
-    One-hot ``[B, 4L]`` (class-major, float32) times compat columns in
+    One-hot ``[B, 4L]`` (class-major, float32) times table columns in
     chunks of K with ``torch.matmul`` in float32: exact, since every product
     is 0 or 1 (even in TF32) and sums stay <= L <= 255.  Top-2 per chunk,
     merged across chunks in ascending order."""
@@ -201,30 +249,22 @@ def colmerge_top2_reference(
     acc = _top2_init(b, k, obs_bit2.device)
     for k0 in range(0, k, kc):
         k1 = min(k, k0 + kc)
-        cols = compat[:, k0:k1].to(torch.float32)
+        cols = table_columns(table, k0, k1, 4 * length)
         counts = torch.matmul(onehot, cols).to(torch.int32)
         cb, ci, cn = chunk_top2(torch.clamp(counts, max=MAX_COUNT))
         acc = merge_top2(acc, (cb, ci + k0, cn))
     return acc
 
 
-def _unpack_bits(bits: torch.Tensor, wl: int) -> torch.Tensor:
-    """``[n, NW]`` uint32 bit table -> ``[wl, n]`` float32 0/1 (the
-    class-major compat columns it packs)."""
-    j = torch.arange(wl, dtype=torch.int32, device=bits.device)
-    words = bits.view(torch.int32)[:, (j // 32).long()]  # [n, wl]
-    return ((words >> (j % 32)) & 1).T.to(torch.float32)
-
-
 def tile_top2_reference(
-    obs_bit2: torch.Tensor, bits: torch.Tensor, k: int, length: int
+    obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
 ) -> Top2:
     """Plain PyTorch version of ``tile_top2`` (same signature and results),
     written as the TPU kernel #2 (``pallas_matcher.py:285-371``) computes,
     tile by tile.
 
-    Per tile of :data:`TILE_K` columns: the tile's compat columns unpacked
-    from ``bits``, counts by a float32 one-hot matmul (exact, as in
+    Per tile of :data:`TILE_K` columns: the tile's columns of ``table``,
+    counts by a float32 one-hot matmul (exact, as in
     :func:`colmerge_top2_reference`), the combined key
     ``count * TILE_K + column``, its min (best and the first index) and the
     min over the other keys (next); then the ordered running merge
@@ -243,7 +283,7 @@ def tile_top2_reference(
         acc = _top2_init(oh.shape[0], k, dev)
         for k0 in range(0, k, tk):
             k1 = min(k, k0 + tk)
-            counts = torch.matmul(oh, _unpack_bits(bits[k0:k1], 4 * length))
+            counts = torch.matmul(oh, table_columns(table, k0, k1, 4 * length))
             col = torch.arange(k1 - k0, dtype=torch.int32, device=dev)
             key = counts.to(torch.int32) * tk + col
             m1 = key.min(dim=1).values
@@ -260,14 +300,23 @@ def tile_top2_reference(
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 
-def _ksplit(b: int, device: torch.device) -> int:
-    """Column groups per CTA: the smallest split that gives >= 2 CTAs per
-    SM (rows per CTA = 256 / ksplit), 8 at most."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for ks in (1, 2, 4, 8):
-        if -(-b // (_THREADS // ks)) >= 2 * sms:
-            return ks
-    return 8
+def plan_chunks(b: int, k: int, slots: int, max_cols: Optional[int] = None) -> Tuple[int, int]:
+    """``(n_chunks, cols_per_cta)``: how a launch over ``b`` rows splits the
+    ``k`` columns across CTAs on a card that runs ``slots`` CTAs of
+    :data:`ROWS_PER_CTA` rows at a time (:data:`CTAS_PER_SM` per SM).
+
+    One chunk wherever the row tiles fill the SMs; else as many chunks as
+    fill them once, each at least :data:`MIN_CHUNK_SUBS` sub-tiles of
+    :data:`K_ALIGN` columns (a small K is never split), and at least as many
+    as keep a chunk within ``max_cols`` columns.  ``cols_per_cta`` is a
+    multiple of :data:`K_ALIGN`; every chunk holds a column < k."""
+    n_sub = -(-k // K_ALIGN)
+    row_tiles = max(1, -(-b // ROWS_PER_CTA))
+    want = min(max(1, slots // row_tiles), max(1, n_sub // MIN_CHUNK_SUBS))
+    if max_cols is not None:
+        want = max(want, -(-n_sub // (max_cols // K_ALIGN)))
+    subs_per = -(-n_sub // want)
+    return -(-n_sub // subs_per), subs_per * K_ALIGN
 
 
 def _check_obs(obs: torch.Tensor, length: int) -> Tuple[int, int]:
@@ -283,129 +332,112 @@ def _check_obs(obs: torch.Tensor, length: int) -> Tuple[int, int]:
     return b, width
 
 
-class ColmergeTop2:
-    """Wrapper of ``csrc/colmerge_top2.cu``.
+def _check_table(table: torch.Tensor, obs: torch.Tensor, k: int, length: int, k_max: int) -> Tuple[int, int]:
+    """``(K_pad, KP)`` of a kernel's table argument, or ``ValueError``."""
+    kp = table_depth(length)
+    sb = _slice_bytes(kp)
+    if (
+        table.dtype != torch.int8
+        or table.dim() != 6
+        or tuple(table.shape[1:]) != (kp // sb, 16, sb // 16, 8, 16)
+    ):
+        raise ValueError(
+            f"table must be the int8 [K_pad/128, {kp // sb}, 16, {sb // 16}, "
+            f"8, 16] tiling of pack_table_i8 (KP={kp}), got {table.dtype} "
+            f"{tuple(table.shape)}"
+        )
+    k_pad = int(table.shape[0]) * K_ALIGN
+    if not 1 <= k <= k_pad or k > k_max:
+        raise ValueError(f"k={k} outside 1..min(K_pad={k_pad}, {k_max})")
+    if table.device != obs.device:
+        raise ValueError(f"table on {table.device}, obs on {obs.device}")
+    if not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("table must be contiguous and 16-byte aligned")
+    return k_pad, kp
 
-    ``launches`` counts kernel launches and ``plain_calls`` runs of the plain
+
+class _Top2Kernel:
+    """Wrapper of one of the two kernels: on a CUDA tensor it launches
+    ``csrc/<name>.cu``, on a CPU tensor it runs the plain version.
+
+    ``launches`` counts kernel launches (one per call: the counting pass and,
+    where K is split, its merge pass) and ``plain_calls`` runs of the plain
     version; each is incremented only where that work is issued."""
+
+    name = ""
+    #: largest K the kernel's key holds, and the largest chunk of columns
+    k_max = (1 << 31) - 1
+    max_cols: Optional[int] = None
+    #: whether a single chunk still goes through the partial buffer
+    always_partial = False
 
     def __init__(self) -> None:
         self.launches = 0
         self.plain_calls = 0
 
+    @staticmethod
+    def reference(obs_bit2, table, k, length) -> Top2:
+        raise NotImplementedError
+
     def __call__(
-        self, obs_bit2: torch.Tensor, compat: torch.Tensor, k: int, length: int
+        self, obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
     ) -> Top2:
         if obs_bit2.device.type == "cpu":
             self.plain_calls += 1
-            return colmerge_top2_reference(obs_bit2, compat, k, length)
+            return self.reference(obs_bit2, table, k, length)
         if obs_bit2.device.type != "cuda":
             raise ValueError(f"unsupported device {obs_bit2.device}")
-        return self._launch(obs_bit2, compat, k, length)
+        return self._launch(obs_bit2, table, k, length)
 
-    def _launch(self, obs, compat, k, length) -> Top2:
+    def _launch(self, obs, table, k, length) -> Top2:
         b, width = _check_obs(obs, length)
-        if compat.dtype != torch.int8 or compat.dim() != 2 or compat.shape[0] != 4 * length:
-            raise ValueError(
-                f"compat must be [4L={4 * length}, K_pad] int8, got "
-                f"{compat.dtype} {tuple(compat.shape)}"
-            )
-        if not 1 <= k <= compat.shape[1] or k > MAX_K:
-            raise ValueError(f"k={k} outside 1..min(K_pad={compat.shape[1]}, {MAX_K})")
-        if compat.device != obs.device:
-            raise ValueError(f"compat on {compat.device}, obs on {obs.device}")
-        if not compat.is_contiguous():
-            raise ValueError("compat must be contiguous")
+        k_pad, kp = _check_table(table, obs, k, length, self.k_max)
         out = torch.empty((3, b), dtype=torch.int32, device=obs.device)
         if b == 0:
             return out[0], out[1], out[2]
-        launch = load_kernel("colmerge_top2")
+        sms = torch.cuda.get_device_properties(obs.device).multi_processor_count
+        n_chunks, cols_per_cta = plan_chunks(b, k, CTAS_PER_SM * sms, self.max_cols)
+        partial = None
+        if n_chunks > 1 or self.always_partial:
+            partial = torch.empty((2, n_chunks, b), dtype=torch.int32, device=obs.device)
+        launch = load_kernel(self.name)
         with torch.cuda.device(obs.device):
             stream = torch.cuda.current_stream(obs.device).cuda_stream
             rc = launch(
                 obs.data_ptr(), b, width,
-                compat.data_ptr(), compat.shape[1], k, length,
-                _ksplit(b, obs.device),
+                table.data_ptr(), k_pad, kp, k, length,
+                n_chunks, cols_per_cta,
+                None if partial is None else partial.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 stream,
             )
         if rc != 0:
             raise RuntimeError(
-                f"colmerge_top2 launch failed: code {rc} "
-                f"(B={b}, K={k}, L={length})"
+                f"{self.name} launch failed: code {rc} "
+                f"(B={b}, K={k}, L={length}, {n_chunks} x {cols_per_cta} columns)"
             )
         self.launches += 1
         return out[0], out[1], out[2]
 
 
-class TileTop2:
-    """Wrapper of ``csrc/tile_top2.cu``; the kernel and its plain version
-    read the bit table of a ``tile_top2`` state.
+class ColmergeTop2(_Top2Kernel):
+    """Wrapper of ``csrc/colmerge_top2.cu`` (TPU kernel #1): the global
+    column rides in the key, so K <= :data:`MAX_K`."""
 
-    ``launches`` counts kernel launches (one per pass-1 + pass-2 pair: one
-    per call unless the batch is split into row chunks to keep the partial
-    buffer under :data:`_PARTIAL_MAX_BYTES`) and ``plain_calls`` runs of the
-    plain version; each is incremented only where that work is issued."""
+    name = "colmerge_top2"
+    k_max = MAX_K
+    reference = staticmethod(colmerge_top2_reference)
 
-    def __init__(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
 
-    def __call__(
-        self, obs_bit2: torch.Tensor, bits: torch.Tensor, k: int, length: int
-    ) -> Top2:
-        if obs_bit2.device.type == "cpu":
-            self.plain_calls += 1
-            return tile_top2_reference(obs_bit2, bits, k, length)
-        if obs_bit2.device.type != "cuda":
-            raise ValueError(f"unsupported device {obs_bit2.device}")
-        return self._launch(obs_bit2, bits, k, length)
+class TileTop2(_Top2Kernel):
+    """Wrapper of ``csrc/tile_top2.cu`` (TPU kernel #2): each K tile of at
+    most :data:`MAX_TILE_COLS` columns is reduced on its own and the tiles
+    merge in ascending order, so K is bounded only by the int32 idx."""
 
-    def _launch(self, obs, bits, k, length) -> Top2:
-        b, width = _check_obs(obs, length)
-        nw = (4 * length + 31) // 32
-        if bits.dtype != torch.uint32 or bits.dim() != 2 or bits.shape[1] != nw:
-            raise ValueError(
-                f"bits must be [K_pad, {nw}] uint32, got {bits.dtype} "
-                f"{tuple(bits.shape)}"
-            )
-        k_pad = bits.shape[0]
-        if not 1 <= k <= k_pad or k_pad % 4 or k >= 1 << 31:
-            raise ValueError(
-                f"k={k} outside 1..K_pad={k_pad} (K_pad a multiple of 4, "
-                "K < 2^31)"
-            )
-        if bits.device != obs.device:
-            raise ValueError(f"bits on {bits.device}, obs on {obs.device}")
-        if not bits.is_contiguous() or bits.data_ptr() % 16:
-            raise ValueError("bits must be contiguous and 16-byte aligned")
-        out = torch.empty((3, b), dtype=torch.int32, device=obs.device)
-        if b == 0:
-            return out[0], out[1], out[2]
-        n_tiles = -(-k // TILE_K)
-        chunk = _PARTIAL_MAX_BYTES // (4 * n_tiles) // _THREADS * _THREADS
-        chunk = min(b, max(_THREADS, chunk))
-        partial = torch.empty(n_tiles * chunk, dtype=torch.uint32, device=obs.device)
-        launch = load_kernel("tile_top2")
-        with torch.cuda.device(obs.device):
-            stream = torch.cuda.current_stream(obs.device).cuda_stream
-            for r0 in range(0, b, chunk):
-                rows = min(chunk, b - r0)
-                rc = launch(
-                    obs.data_ptr() + r0 * width, rows, width,
-                    bits.data_ptr(), k_pad, nw, k, length,
-                    partial.data_ptr(),
-                    out[0].data_ptr() + 4 * r0, out[1].data_ptr() + 4 * r0,
-                    out[2].data_ptr() + 4 * r0,
-                    stream,
-                )
-                if rc != 0:
-                    raise RuntimeError(
-                        f"tile_top2 launch failed: code {rc} "
-                        f"(B={rows}, K={k}, L={length})"
-                    )
-                self.launches += 1
-        return out[0], out[1], out[2]
+    name = "tile_top2"
+    max_cols = MAX_TILE_COLS
+    always_partial = True
+    reference = staticmethod(tile_top2_reference)
 
 
 class HopperAssignFn:
@@ -483,8 +515,8 @@ def make_hopper_assign_fn(
     The kernel is the one :func:`hopper_scheme` names: ``colmerge_top2``
     where the JAX package's device path runs the TPU kernel's column-merge
     scheme, ``tile_top2`` where it runs the per-step lane reduce.  The
-    Hopper kernels keep their own tiling (256 rows per CTA; all of K per
-    CTA, or K tiles of :data:`TILE_K` columns)."""
+    Hopper kernels keep their own tiling (:data:`ROWS_PER_CTA` rows per CTA;
+    K split by :func:`plan_chunks`)."""
     if not packed2:
         raise NotImplementedError(_ROADMAP_INPUTS)
     if expected.length > 255:

@@ -22,7 +22,7 @@ Counterparts of the Pallas bodies of ``scripts/kernel_lab.py`` (TPU kernels
 Every variant reads the lab's table: the class-major 0/1 mismatch table
 padded with **all-ones** columns to ``k_padded = n_k_tiles * tile_k``
 (``kernel_lab.py:62-71``), bit-packed by
-:func:`~fqtk_tpu_torch.ops.hopper_matcher.pack_compat_bits` for the POPC
+:func:`pack_compat_bits` for the POPC
 kernels, or as int8 ``[k_padded, KP]`` (a column's 4L entries, zero-padded
 to ``KP = 32 * ceil(4L / 32)``) for ``mma_probe``.  A pad column
 counts L mismatches and takes part in every result, as in the JAX lab
@@ -50,7 +50,7 @@ from typing import Callable, Dict, Tuple, Union
 import torch
 
 from ._build import load_kernel
-from .hopper_matcher import _PLAIN_CHUNK_ELEMS, _check_obs, _onehot_f32, _unpack_bits
+from .hopper_matcher import _PLAIN_CHUNK_ELEMS, _check_obs, _onehot_f32
 from .matcher import MAX_COUNT, Top2
 
 #: the bound probes of kernel #4, in the order of ``csrc/lab_probe.cu``'s
@@ -75,6 +75,31 @@ KEY_MASKED = 1 << 30
 MAX_LAB_LENGTH = 32
 
 _INT32_LIMIT = 1 << 31
+
+
+def pack_compat_bits(compat: torch.Tensor) -> torch.Tensor:
+    """``[4L, K_pad]`` 0/1 int8 -> ``[K_pad, ceil(4L/32)]`` uint32 with bit
+    ``j % 32`` of word ``j // 32`` of column k equal to ``compat[j, k]``
+    (plain torch ops on ``compat``'s device, once per state)."""
+    wl, k_pad = compat.shape
+    words = []
+    for w0 in range(0, wl, 32):
+        acc = torch.zeros(k_pad, dtype=torch.int64, device=compat.device)
+        for j in range(w0, min(wl, w0 + 32)):
+            acc |= compat[j].to(torch.int64) << (j - w0)
+        words.append(acc)
+    words = torch.stack(words, dim=1)
+    # the same 32 bits as int32 (two's complement), viewed as uint32
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).view(torch.uint32)
+
+
+def _unpack_bits(bits: torch.Tensor, wl: int) -> torch.Tensor:
+    """``[n, NW]`` uint32 bit table -> ``[wl, n]`` float32 0/1 (the
+    class-major compat columns it packs)."""
+    j = torch.arange(wl, dtype=torch.int32, device=bits.device)
+    words = bits.view(torch.int32)[:, (j // 32).long()]  # [n, wl]
+    return ((words >> (j % 32)) & 1).T.to(torch.float32)
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,7 @@ Counterpart of the device side of :mod:`fqtk_tpu.runtime.demux` on its
 native engine:
 
 1. the C++ engine (``native/fqtk_io.cpp`` through
-   :mod:`fqtk_tpu.io.native`) parses the FASTQs and packs each read's
+   :mod:`fqtk_tpu_torch.io.native`) parses the FASTQs and packs each read's
    sample barcode as 2-bit codes (``[B, ceil(L/4)]`` uint8, "bit2"),
 2. each window goes to the Hopper matcher
    (:func:`fqtk_tpu_torch.ops.hopper_matcher.make_hopper_assign_fn`), one
@@ -12,43 +12,38 @@ native engine:
    rows that are not pure ACGT are resolved on the host with the NumPy spec,
 3. the engine routes records to per-sample BGZF writers.
 
-Everything on the host (validation, host matchers, metrics) is imported
-from ``fqtk_tpu`` unchanged.  The native engine is required: where it is
-unavailable this raises instead of running the Python-IO engine.
+The host side (validation, the host-matcher wrapper, metrics) is the port's
+own copy of ``fqtk_tpu/runtime/demux.py``'s (``:51-265``, ``:412``,
+``:1453-1511``), under the same names; nothing is imported from that
+package.  The native engine is required: where it is unavailable this raises
+instead of running the Python-IO engine.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import stat
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from fqtk_tpu.core.read_structure import FILE_TYPE_CODE, ReadStructure
-from fqtk_tpu.core.samples import SampleGroup
-from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
-from fqtk_tpu.runtime.demux import (
-    DEFAULT_BATCH_SIZE,
-    HOST_MATCHER_BATCH,
-    PALLAS_K_THRESHOLD,
-    _TYPE_ORDER,
-    DemuxError,
-    _host_assign_wrapper,
-    _host_matcher_max_k,
-    _too_few_bases_allowed,
-    compute_metrics,
-    validate_and_prepare,
-    write_metrics,
+from ..core.read_structure import (
+    FILE_TYPE_CODE,
+    ReadStructure,
+    ReadStructureError,
+    SegmentType,
 )
-from fqtk_tpu.runtime.demux import DemuxConfig as _JaxDemuxConfig
-from fqtk_tpu.runtime.demux import DemuxResult as _JaxDemuxResult
-
+from ..core.samples import SampleGroup
+from ..io import native as native_io
 from ..ops._build import ensure_native_engine
 from ..ops.hopper_matcher import make_hopper_assign_fn, resolve_device
+from ..ops.matcher import ExpectedSet, assign_batch_np
+from ..utils.floatfmt import format_f64
 from ..utils.profiling import StageTimers, maybe_device_trace
 
 __all__ = ["DemuxConfig", "DemuxError", "DemuxResult", "run_demux"]
@@ -58,19 +53,201 @@ logger = logging.getLogger("fqtk")
 _ROADMAP = "not ported yet (ROADMAP.md, 'Modules still to port')"
 
 
+#: fixed iteration order of segment-type writers (reference ``demux.rs:397-402``)
+_TYPE_ORDER = (
+    SegmentType.Template,
+    SegmentType.SampleBarcode,
+    SegmentType.MolecularBarcode,
+    SegmentType.CellularBarcode,
+)
+
+
+class DemuxError(RuntimeError):
+    pass
+
+
+#: default pipeline window: sized to amortize the device path's fixed
+#: per-dispatch cost (transfer + launch) over many reads
+DEFAULT_BATCH_SIZE = 1 << 17
+
+#: window used when a HOST matcher is auto-selected and the user left
+#: ``batch_size`` at the default: host assignment has no per-dispatch cost
+#: to amortize, and small windows overlap parse/assign/route/compress far
+#: better (measured +70% on the single-end configs at 16K vs 128K)
+HOST_MATCHER_BATCH = 1 << 14
+
+
+
 @dataclass
-class DemuxConfig(_JaxDemuxConfig):
+class DemuxConfig:
+    inputs: List[Path]
+    read_structures: List[str]
+    sample_metadata: Path
+    output: Path
+    output_types: List[str] = field(default_factory=lambda: ["T"])
+    unmatched_prefix: str = "unmatched"
+    max_mismatches: int = 1
+    min_mismatch_delta: int = 2
+    threads: int = 8
+    compression_level: int = 5
+    skip_reasons: List[str] = field(default_factory=list)
+    # engine extensions (not in the reference CLI)
+    batch_size: int = DEFAULT_BATCH_SIZE
+    engine: str = "auto"  # auto | native (the Python-IO engines are not ported)
+    #: device count for the batch/whitelist mesh: None = all local devices
+    #: (single-device path when only one is visible), 1 = force single
+    devices: Optional[int] = None
+    #: assignment placement: "auto" picks host matchers when the per-batch
+    #: device round-trip would dominate (tiny K, single device) and the
+    #: device paths otherwise; "host"/"device" force one side
+    matcher: str = "auto"
     #: where device-placed assignment runs: "cuda" (raises without a card)
     #: or "cpu" (the kernel's plain PyTorch version)
     device: str = "cuda"
 
 
 @dataclass
-class DemuxResult(_JaxDemuxResult):
+class DemuxResult:
+    metrics: List[dict]
+    skip_counts: Dict[str, int]
+    total_templates: int
+    timings: Dict[str, float] = field(default_factory=dict)
     #: device matcher counters: ``launches`` and ``plain_calls`` over both
     #: kernels, and ``<kernel>_launches`` / ``<kernel>_plain_calls`` for
     #: ``colmerge_top2`` and ``tile_top2``; empty when a host matcher ran
     matcher: Dict[str, int] = field(default_factory=dict)
+
+
+def _parse_output_types(chars: Sequence[str]) -> List[SegmentType]:
+    types: List[SegmentType] = []
+    for c in chars:
+        types.append(SegmentType.from_char(c))
+    # de-dup, stable order
+    seen = set()
+    out = []
+    for t in types:
+        if t not in seen:
+            seen.add(t)
+            out.append(t)
+    return out
+
+
+def validate_and_prepare(cfg: DemuxConfig):
+    """Input validation, mirroring ``demux.rs:806-875`` (messages included)."""
+    errors: List[str] = []
+
+    if len(cfg.inputs) != len(cfg.read_structures):
+        errors.append(
+            "The same number of read structures should be given as FASTQs "
+            f"{len(cfg.read_structures)} read-structures provided for "
+            f"{len(cfg.inputs)} FASTQs"
+        )
+
+    output = Path(cfg.output)
+    if not output.exists():
+        logger.info('Output directory "%s" didn\'t exist, creating it.', output)
+        output.mkdir(parents=True, exist_ok=True)
+
+    # the reference checks the permission BITS (fs::Permissions::readonly,
+    # demux.rs:824-827), not effective access — matters for root, where
+    # os.access() would say a chmod-555 directory is writable
+    if output.stat().st_mode & 0o222 == 0:
+        # NB: "Ouput" typo is the reference's operator-facing text (demux.rs:826)
+        errors.append(f'Ouput directory "{output}" cannot be read-only')
+
+    output_types: Optional[List[SegmentType]] = None
+    try:
+        output_types = _parse_output_types(cfg.output_types)
+    except ReadStructureError as e:
+        errors.append(f"Error parsing segment types to report: {e}")
+
+    for inp in cfg.inputs:
+        if not Path(inp).exists():
+            errors.append(f'Provided input file "{inp}" doesn\'t exist')
+
+    # attempt to open the files for reading (collected, first failure only —
+    # the reference's Result collect short-circuits; demux.rs:843-851).
+    # Stream inputs (pipes / process substitution / sockets) are exempt:
+    # an open-close probe would block without a writer, or kill the writer
+    # with SIGPIPE before the engine's single real open.
+    for inp in cfg.inputs:
+        try:
+            mode = os.stat(inp).st_mode
+            if stat.S_ISFIFO(mode) or stat.S_ISSOCK(mode) or stat.S_ISCHR(mode):
+                continue
+            with open(inp, "rb"):
+                pass
+        except OSError as e:
+            errors.append(f"Error opening input files for reading: {e}")
+            break
+
+    if cfg.threads < 5:
+        errors.append(
+            f"Threads provided {cfg.threads} was too low! Must be 5 or more."
+        )
+
+    if not errors and output_types is not None and not output_types:
+        errors.append(
+            "No output types requested, must request at least one output segment type."
+        )
+
+    if errors:
+        details = "Inputs failed validation!\n"
+        for e in errors:
+            details += f"    - {e}\n"
+        raise DemuxError(
+            f"The following errors with the input(s) were detected:\n{details}"
+        )
+    assert output_types is not None
+    return output, output_types
+
+
+def _too_few_bases_allowed(cfg: DemuxConfig) -> bool:
+    allowed = set()
+    for s in cfg.skip_reasons:
+        if s in ("too few bases", "too-few-bases", "toofewbases"):
+            allowed.add("TooFewBases")
+        else:
+            raise DemuxError(f"Invalid skip reason: {s}")
+    return "TooFewBases" in allowed
+
+
+
+#: whitelist size from which the JAX package prefers its fused kernel to
+#: the XLA scan; here it only gates the big-K pigeonhole host matcher, as
+#: there
+PALLAS_K_THRESHOLD = 65536
+
+
+def _host_matcher_max_k():
+    """Optional explicit whitelist-size cap (``FQTK_HOST_MATCHER_MAX_K``) at
+    or below which the auto policy keeps assignment on the host (brute-force
+    ``SmallKMatcher``).  ``None`` when unset: the JAX package then measures
+    the placement; the port takes the device path (measured placement is
+    not ported yet, ROADMAP.md).  ``=0`` routes every whitelist to the
+    device; an unparsable value reads as 4096, as in the JAX package."""
+    v = os.environ.get("FQTK_HOST_MATCHER_MAX_K")
+    if v is None:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        return 4096
+
+
+def _host_assign_wrapper(matcher):
+    """Closure over the host matcher (keeps it alive, attribute-friendly).
+
+    ``assign.native_matcher`` exposes the underlying native matcher so the
+    native engine can FUSE it (engine-side assign thread, no per-window
+    Python round trips; see ``NativeDemuxEngine.pipe_fuse_host_matcher``)."""
+
+    def assign(obs_packed):
+        return matcher.assign(obs_packed)
+
+    assign.native_matcher = matcher
+    return assign
+
 
 
 class _Pending:
@@ -102,7 +279,6 @@ def _build_device_assign_fn(cfg: DemuxConfig, expected: ExpectedSet, barcodes):
     big_k = expected.count >= PALLAS_K_THRESHOLD and expected.length <= 255
     policy = cfg.matcher or "auto"
     host_threads = max(2, min(cfg.threads - 1, os.cpu_count() or 4))
-    from fqtk_tpu.io import native as native_io
 
     if policy != "device" and big_k and barcodes is not None:
         try:
@@ -280,8 +456,6 @@ def run_demux(cfg: DemuxConfig) -> DemuxResult:
 def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
     """Driver loop of ``fqtk_tpu.runtime.demux._run_demux_native``, with the
     device results fetched through :meth:`_Pending.fetch`."""
-    from fqtk_tpu.io import native as native_io
-
     output, output_types = validate_and_prepare(cfg)
     skip_too_few = _too_few_bases_allowed(cfg)
 
@@ -529,3 +703,64 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
         timings={**timers.summary(), **native_stats, "pipeline": pipeline_s},
         matcher=matcher_stats,
     )
+
+
+def compute_metrics(
+    sample_group: SampleGroup, counts: np.ndarray, unmatched_prefix: str
+) -> List[dict]:
+    """Derived metrics per sample (reference ``demux.rs:481-496``)."""
+    n = len(sample_group.samples)
+    templates = counts[:n].astype(np.float64)
+    unmatched = np.float64(counts[n])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sample_total = templates.sum()
+        total = sample_total + unmatched
+        mean = sample_total / np.float64(n)
+        best = np.float64(templates.max() if n else 0.0)
+        rows = []
+        for i, s in enumerate(sample_group.samples):
+            t = templates[i]
+            rows.append(
+                dict(
+                    sample_id=s.sample_id,
+                    barcode=s.barcode,
+                    templates=int(t),
+                    frac_templates=float(t / total),
+                    ratio_to_mean=float(t / mean),
+                    ratio_to_best=float(t / best),
+                )
+            )
+        rows.append(
+            dict(
+                sample_id=unmatched_prefix,
+                barcode=".",
+                templates=int(unmatched),
+                frac_templates=float(unmatched / total),
+                ratio_to_mean=float(unmatched / mean),
+                ratio_to_best=float(unmatched / best),
+            )
+        )
+    return rows
+
+
+def write_metrics(path: Path, metrics: List[dict]) -> None:
+    cols = [
+        "sample_id",
+        "barcode",
+        "templates",
+        "frac_templates",
+        "ratio_to_mean",
+        "ratio_to_best",
+    ]
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\t".join(cols) + "\n")
+        for row in metrics:
+            fields = [
+                str(row["sample_id"]),
+                str(row["barcode"]),
+                str(row["templates"]),
+                format_f64(row["frac_templates"]),
+                format_f64(row["ratio_to_mean"]),
+                format_f64(row["ratio_to_best"]),
+            ]
+            fh.write("\t".join(fields) + "\n")

@@ -1,6 +1,8 @@
 """Per-stage pipeline timing + optional device traces.
 
-- :class:`StageTimers` is shared with the JAX package (it has no JAX in it).
+- :class:`StageTimers` — cumulative wall-clock per pipeline stage, logged at
+  the end of a run and returned in ``DemuxResult.timings`` (the port's copy
+  of ``fqtk_tpu/utils/profiling.py``'s, without its ``jax.profiler`` half).
 - ``FQTK_PROFILE_DIR`` — when set, wraps the run in a ``torch.profiler``
   trace (CPU and, where a card is present, CUDA activity), written to that
   directory as a Chrome trace.
@@ -11,13 +13,40 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-from typing import Iterator
-
-from fqtk_tpu.utils.profiling import StageTimers
+import time
+from collections import defaultdict
+from typing import Dict, Iterator
 
 __all__ = ["StageTimers", "maybe_device_trace"]
 
 logger = logging.getLogger("fqtk")
+
+
+class StageTimers:
+    def __init__(self) -> None:
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def time(self, stage: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[stage] += time.perf_counter() - t0
+            self.counts[stage] += 1
+
+    def summary(self) -> Dict[str, float]:
+        return dict(self.totals)
+
+    def log(self, total_records: int) -> None:
+        if not self.totals:
+            return
+        parts = []
+        for stage, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            rate = total_records / t if t > 0 else float("inf")
+            parts.append(f"{stage}={t:.2f}s ({rate / 1e6:.2f}M/s)")
+        logger.info("pipeline stage times (wall, overlapped): %s", ", ".join(parts))
 
 
 @contextlib.contextmanager

@@ -144,8 +144,15 @@ def test_state_matches_pallas_table(k):
     want = compat_for_plan(es.masks, plan) // plan.compat_scale
     assert state.scheme == "colmerge_top2"
     assert state.table.dtype == torch.int8
-    assert tuple(state.table.shape) == want.shape == (4 * 13, plan.k_padded)
-    np.testing.assert_array_equal(state.table.numpy(), want)
+    assert want.shape == (4 * 13, plan.k_padded)
+    # packed once for the tensor-core product: the [K_pad, KP] table,
+    # zero-padded in depth, tiled in the order the product reads it
+    assert hm.table_depth(13) == 64 and state.k_pad == plan.k_padded
+    assert tuple(state.table.shape) == (plan.k_padded // 128, 1, 16, 4, 8, 16)
+    np.testing.assert_array_equal(
+        hm.table_columns(state.table, 0, plan.k_padded, 4 * 13).numpy(), want
+    )
+    assert int(state.table.sum()) == int(want.sum())  # the depth pad is zero
     assert (state.k, state.length) == (k, 13)
     assert state.max_ns_in_barcodes == es.max_ns_in_barcodes
 
@@ -182,3 +189,178 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.build_kernels()
+
+
+# --------------------------------------------------------------------------
+# the grid of depths and whitelist sizes, and a model of the kernels' top-2
+# --------------------------------------------------------------------------
+
+from fqtk_tpu.ops.matcher import make_assign_fn  # noqa: E402
+
+from .test_torch_kernels_gpu import GRID_KS, GRID_LENGTHS, grid_case  # noqa: E402
+
+
+@pytest.mark.parametrize("length", GRID_LENGTHS)
+@pytest.mark.parametrize("k", GRID_KS)
+def test_grid_plain_versions_match_spec_pallas_and_xla(k, length):
+    """Both plain versions on the tiled int8 table, at every depth (one k32
+    step to eight slices of 128) and K around the sub-tile edges, with ties
+    (duplicated barcodes) and a row that mismatches barcode 0 everywhere
+    (count L: 255 at L = 255): equal to the NumPy spec, to the Pallas matcher
+    in interpret mode and to the XLA bit2 matcher."""
+    rng = np.random.default_rng(1000 * length + k)
+    b = 256
+    es, obs = grid_case(rng, k, length, b)
+    packed = pack_bit2(obs)
+    want = spec(obs, es, 1, 2)
+    for scheme in hm.SCHEMES:
+        state = hm.hopper_state_from_numpy(es, "cpu", scheme)
+        fn = hm.HopperAssignFn(state, 1, 2, compact_output=True)
+        got = tuple(t.numpy() for t in fn(packed))
+        assert fn.kernels[scheme].plain_calls == 1 and fn.launches == 0
+        assert_same(got, want)
+        # ungated: idx is the first column of the smallest count, even at 255
+        best, idx, nxt = fn.kernels[scheme].reference(
+            torch.from_numpy(packed), state.table, k, length)
+        s_idx, s_best, s_next = spec(obs, es, 255, 0)
+        assert_same((best.numpy(), idx.numpy(), nxt.numpy()), (s_best, s_idx, s_next))
+    assert_same(got, pallas(es, 1, 2, packed))
+    xla = make_assign_fn(es, 1, 2, packed2=True, compact_output=True)
+    assert_same(got, tuple(np.asarray(x) for x in xla(packed)))
+    if k == 1:
+        assert int(best[b - 1]) == length and int(nxt[b - 1]) == MAX_COUNT
+
+
+def model_top2(counts, k, n_chunks, cols_per_cta, per_tile_key):
+    """NumPy model of the kernels' top-2 (csrc/mma_count.cuh): per CTA column
+    range, per thread of a quad (columns 8j + 2t + e of each 128-column
+    sub-tile), the running two smallest keys behind the group tests against
+    the running second count, the quad fold, then the chunk merge of
+    ``colmerge_top2`` (global keys, any order) or ``tile_top2`` (per-tile
+    keys, ordered merge).  ``counts`` is ``[B, K_pad]`` with all-L pad
+    columns.  Returns (best, idx, next) and how many group tests fired."""
+    b, k_pad = counts.shape
+    init = 0x7FFFFFFF
+    fired = 0
+    chunks = []
+    for c in range(n_chunks):
+        c_begin = c * cols_per_cta
+        c_end = min(-(-k // 128) * 128, c_begin + cols_per_cta)
+        base = c_begin if per_tile_key else 0
+        span = cols_per_cta if per_tile_key else k
+        shift = max(7 if per_tile_key else 1, (span - 1).bit_length())
+        m1 = np.full((b, 4), init, dtype=np.int64)
+        m2 = np.full((b, 4), init, dtype=np.int64)
+        thr = np.full((b, 4), init, dtype=np.int64)
+        for cb in range(c_begin, c_end, 128):
+            for t in range(4):
+                cols = np.array([cb + 8 * j + 2 * t + e for j in range(16) for e in range(2)])
+                for q in range(4):  # groups of 8 counts
+                    gc = cols[8 * q:8 * q + 8]
+                    cnt = counts[:, gc]
+                    fire = cnt.min(axis=1) < thr[:, t]
+                    fired += int(fire.sum())
+                    for i in range(8):
+                        ok = fire & (cnt[:, i] < thr[:, t]) & (gc[i] < k)
+                        key = np.where(ok, (cnt[:, i] << shift) | (gc[i] - base), init)
+                        m2[:, t] = np.minimum(m2[:, t], np.maximum(m1[:, t], key))
+                        m1[:, t] = np.minimum(m1[:, t], key)
+                    upd = fire
+                    thr[upd, t] = np.where(m2[upd, t] == init, init, m2[upd, t] >> shift)
+        f1, f2 = m1[:, 0], m2[:, 0]
+        for t in range(1, 4):  # the quad fold (keys are unique)
+            f2 = np.minimum(np.minimum(f2, m2[:, t]), np.maximum(f1, m1[:, t]))
+            f1 = np.minimum(f1, m1[:, t])
+        chunks.append((f1, f2, shift, c_begin))
+    if not per_tile_key:
+        f1, f2, shift, _ = chunks[0]
+        for o1, o2, _, _ in chunks[1:]:
+            f2 = np.minimum(np.minimum(f2, o2), np.maximum(f1, o1))
+            f1 = np.minimum(f1, o1)
+        out = (np.minimum(f1 >> shift, 255), f1 & ((1 << shift) - 1), np.minimum(f2 >> shift, 255))
+        return out, fired
+    best = np.full(b, 256, dtype=np.int64)
+    idx = np.full(b, k, dtype=np.int64)
+    nxt = np.full(b, 255, dtype=np.int64)
+    for f1, f2, shift, c_begin in chunks:
+        t_best, t_idx = f1 >> shift, c_begin + (f1 & ((1 << shift) - 1))
+        t_next = np.minimum(f2 >> shift, 255)
+        take = t_best < best
+        nxt = np.where(take, np.minimum(best, t_next), np.minimum(nxt, t_best))
+        idx = np.where(take, t_idx, idx)
+        best = np.where(take, t_best, best)
+    return (best, idx, nxt), fired
+
+
+@pytest.mark.parametrize("per_tile_key", [False, True], ids=["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("k,length,slots", [(1, 8, 264), (96, 17, 264), (700, 6, 264),
+                                            (2049, 5, 40), (4100, 9, 4000)])
+def test_kernel_top2_model_is_exact(monkeypatch, k, length, slots, per_tile_key):
+    """The kernels' arithmetic, modelled in NumPy on the launch geometry of
+    :func:`plan_chunks`: the threshold tests never drop a key that matters,
+    so the model equals the NumPy spec, ties and all (short barcodes: many
+    equal counts)."""
+    rng = np.random.default_rng(k + length)
+    b = 40
+    es, obs = grid_case(rng, k, length, b)
+    monkeypatch.setattr(hm, "MIN_CHUNK_SUBS", 2)
+    n_chunks, cols_per_cta = hm.plan_chunks(
+        b, k, slots, hm.MAX_TILE_COLS if per_tile_key else None)
+    assert n_chunks * cols_per_cta >= k > (n_chunks - 1) * cols_per_cta
+    assert cols_per_cta % 128 == 0
+    if k >= 2049:
+        assert n_chunks > 1
+    k_pad = -(-k // 128) * 128
+    counts = np.full((b, k_pad), length, dtype=np.int64)
+    counts[:, :k] = jnp_free_counts(obs, es)
+    (best, idx, nxt), fired = model_top2(counts, k, n_chunks, cols_per_cta, per_tile_key)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)
+    assert_same((best, idx, nxt), (s_best, s_idx, s_next))
+    if k >= 700:  # the tests skip most groups once the pair has warmed up
+        assert fired < 0.5 * b * (k_pad // 8)
+
+
+def jnp_free_counts(obs, es):
+    from fqtk_tpu_torch.ops.matcher import mismatch_counts_np
+
+    return mismatch_counts_np(obs, es)
+
+
+@pytest.mark.parametrize("b,k,slots,max_cols,want", [
+    (8192, 96, 264, None, (1, 128)),
+    (131072, 8192, 264, None, (1, 8192)),
+    (16384, 737280, 264, None, (2, 368640)),
+    (32768, 6794880, 264, 1 << 23, (1, 6794880)),
+    (16384, 6794880, 264, 1 << 23, (2, 3397504)),
+    (100, 20_000_000, 264, 1 << 23, (264, 75776)),
+    (100, 20_000_000, 1, 1 << 23, (3, 6666752)),
+    (1, 1, 264, None, (1, 128)),
+])
+def test_plan_chunks(b, k, slots, max_cols, want):
+    got = hm.plan_chunks(b, k, slots, max_cols)
+    assert got == want
+    n, cols = got
+    assert cols % hm.K_ALIGN == 0 and n * cols >= k > (n - 1) * cols
+    assert max_cols is None or cols <= max_cols
+
+
+@pytest.mark.parametrize("k", [1, 96, 8192, 737_280, 6_794_880, (1 << 23) + 1, 40_000_000])
+@pytest.mark.parametrize("b", [1, 8192, 131_072, 1 << 20, 1 << 22])
+def test_partial_buffer_is_bounded(b, k):
+    """The ``[2, n_chunks, B]`` int32 partials of a launch need no row
+    chunking: K is split only as far as the CTAs fill the card once (then
+    the buffer is about 1 KiB per CTA slot whatever B), or, for
+    ``tile_top2``, into ceil(K / 2^23) tiles (8 bytes per row and tile: less
+    than the 12 bytes per row of the outputs up to K = 2^23)."""
+    slots = 264
+    for max_cols in (None, hm.MAX_TILE_COLS):
+        if max_cols is None and k > hm.MAX_K:
+            continue
+        n_chunks, _ = hm.plan_chunks(b, k, slots, max_cols)
+        row_tiles = -(-b // hm.ROWS_PER_CTA)
+        k_tiles = 1 if max_cols is None else -(-k // max_cols)
+        partial_bytes = 2 * n_chunks * b * 4
+        assert n_chunks <= max(slots // row_tiles, k_tiles, 1)
+        assert partial_bytes <= 1024 * max(slots, row_tiles * k_tiles)
+        if k <= 1 << 23:  # every list the demux path knows: at most the outputs' size
+            assert partial_bytes <= max(1024 * slots, 8 * b)

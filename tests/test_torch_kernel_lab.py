@@ -26,7 +26,7 @@ from jax.experimental import pallas as pl
 from fqtk_tpu.core.encoding import ENCODE_LUT
 from fqtk_tpu_torch.lab import kernel_lab as lab
 from fqtk_tpu_torch.ops import lab_kernels as lk
-from fqtk_tpu_torch.ops.hopper_matcher import pack_compat_bits
+from fqtk_tpu_torch.ops.lab_kernels import pack_compat_bits
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "kernel_lab.py"
 

@@ -92,7 +92,7 @@ def test_assign_fn_on_card(mm, delta):
 
 TILE_SHAPES = [
     (1, 8, 100), (96, 17, 4096), (300, 12, 1000), (8192, 16, 2000),
-    (40, 33, 777), (50, 130, 300),  # L > 128: 17 bit words, the NW = 32 build
+    (40, 33, 777), (50, 130, 300),  # L > 32: the depth walked in slices of 128
 ]
 
 
@@ -119,8 +119,9 @@ def test_tile_top2_matches_plain_on_card(k, length, b):
 
 @pytest.mark.gpu
 def test_tile_top2_cross_tile_ties_on_card():
-    """Duplicates in different 8,192-column K tiles: the first index wins,
-    and the ragged last tile is masked."""
+    """Duplicates in different K tiles (204 rows: the launch splits K into
+    12 tiles of 2,048 columns): the first index wins, and the ragged last
+    tile is masked."""
     _need_card()
     rng = np.random.default_rng(12)
     k, length = 3 * hm.TILE_K + 77, 16
@@ -132,6 +133,8 @@ def test_tile_top2_cross_tile_ties_on_card():
                           rng.choice(ACGT, size=(200, length)).astype(np.uint8)])
     state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
     packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert hm.plan_chunks(len(obs), k, 2 * sms, hm.MAX_TILE_COLS)[0] > 3
     got = hm.TileTop2()(packed, state.table, k, length)
     want = hm.tile_top2_reference(packed, state.table, k, length)
     for g, w in zip(got, want):
@@ -177,23 +180,85 @@ def test_failing_kernel_load_raises_on_card(monkeypatch, kernel):
     assert kern.launches == 0 and kern.plain_calls == 0
 
 
+def grid_case(rng, k, length, b):
+    """Random barcodes with duplicates allowed (ties; 4^L may be below K), an
+    IUPAC N and R where K > 7; reads: a third planted exact matches, a sixth
+    one mismatch away, and a last row that mismatches barcode 0 at every
+    position (count L: 255 at L = 255, the saturation bound)."""
+    wl = ACGT[rng.integers(0, 4, size=(k, length))]
+    if k > 2:
+        wl[k - 1] = wl[1]  # the same barcode far apart: the first index wins
+    planted = wl.copy()
+    if k > 7:
+        wl[3, length // 2] = ord("N")
+        wl[7, 0] = ord("R")
+    es = ExpectedSet.from_barcodes([bytes(r).decode() for r in wl])
+    obs = ACGT[rng.integers(0, 4, size=(b, length))]
+    obs[0::3] = planted[rng.integers(0, k, size=len(obs[0::3]))]
+    obs[1::6] = obs[0::6][: len(obs[1::6])]
+    rows = np.arange(1, b, 6)
+    pos = rows % length
+    obs[rows, pos] = ACGT[(np.searchsorted(ACGT, obs[rows, pos]) + 1) % 4]
+    obs[b - 1] = ACGT[(np.searchsorted(ACGT, planted[0]) + 1) % 4]
+    return es, obs
+
+
+GRID_LENGTHS = [1, 8, 16, 17, 31, 64, 255]
+GRID_KS = [1, 2, 96, 8191, 8193]
+
+
 @pytest.mark.gpu
-def test_tile_top2_row_chunks_on_card(monkeypatch):
-    """A batch larger than the partial buffer's row budget launches in row
-    chunks (one count each) and equals the plain version."""
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("length", GRID_LENGTHS)
+@pytest.mark.parametrize("k", GRID_KS)
+def test_kernel_grid_on_card(kernel, k, length):
+    """Both kernels over every depth (one k-step to the sliced walk), K
+    around the sub-tile and chunk edges, ties and the count L = 255: equal
+    to the plain version and to the NumPy spec."""
     _need_card()
-    rng = np.random.default_rng(14)
-    k, length, b = 2 * hm.TILE_K + 5, 12, 1000
-    es, obs = whitelist_case(rng, k=k, length=length, b=b)
-    state = hm.hopper_state_from_numpy(es, "cuda", "tile_top2")
+    rng = np.random.default_rng(1000 * length + k)
+    b = 333
+    es, obs = grid_case(rng, k, length, b)
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel)
     packed = torch.from_numpy(pack_bit2(obs)).cuda()
-    monkeypatch.setattr(hm, "_PARTIAL_MAX_BYTES", 4 * 3 * 256)  # 256 rows
-    kern = hm.TileTop2()
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
     got = kern(packed, state.table, k, length)
-    assert kern.launches == 4
-    want = hm.tile_top2_reference(packed, state.table, k, length)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+    want = kern.reference(packed, state.table, k, length)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)  # every row passes the gates
+    np.testing.assert_array_equal(got[0].cpu().numpy(), s_best)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+    assert int(got[0][b - 1]) <= length and (k > 1 or int(got[0][b - 1]) == length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("b", [1, 129, 1000])
+def test_k_chunks_on_card(monkeypatch, kernel, b):
+    """K split into many column ranges (one 128-column sub-tile per CTA at
+    the least): the chunks' partial results merge to the plain version's."""
+    _need_card()
+    rng = np.random.default_rng(14 + b)
+    k, length = 2 * 8192 + 5, 12
+    es, obs = grid_case(rng, k, length, b)
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel)
+    packed = torch.from_numpy(pack_bit2(obs)).cuda()
+    monkeypatch.setattr(hm, "MIN_CHUNK_SUBS", 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert hm.plan_chunks(b, k, 2 * sms)[0] >= 16
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    got = kern(packed, state.table, k, length)
+    assert kern.launches == 1
+    want = kern.reference(packed, state.table, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
+from fqtk_tpu.ops.matcher import ExpectedSet
 from fqtk_tpu.ops.pallas_matcher import (
     _compat_classmajor,
     make_pallas_assign_fn,
@@ -182,7 +182,9 @@ def test_fn_scheme_matches_helper(monkeypatch):
     monkeypatch.setattr(hm, "hopper_scheme", lambda k, length: "tile_top2")
     fn = hm.make_hopper_assign_fn(es, 1, 2, device="cpu")
     assert fn.scheme == fn.state.scheme == "tile_top2"
-    assert fn.state.table.dtype == torch.uint32  # only the table it reads
+    # both schemes read the one int8 table of the tensor-core product
+    assert fn.state.table.dtype == torch.int8
+    assert fn.state.table.numel() == fn.state.k_pad * hm.table_depth(12)
     with pytest.raises(ValueError, match="scheme"):
         hm.hopper_state_from_numpy(es, "cpu", "colmerge")
 
@@ -202,9 +204,9 @@ def test_k_above_colmerge_key_limit_is_accepted():
     assert list(assigned) == [5_000_001, k, 0]
     assert list(best) == [0, 1, 0] and list(nxt) == [0, 1, 0]
     assert_same((assigned, best, nxt), spec(obs, es, 0, 0))
-    compat = torch.ones((4, fn.state.k_pad), dtype=torch.int8)
+    table = torch.ones_like(fn.state.table)
     with pytest.raises(ValueError, match="k="):
-        hm.ColmergeTop2()._launch(torch.from_numpy(pack_bit2(obs)), compat, k, 1)
+        hm.ColmergeTop2()._launch(torch.from_numpy(pack_bit2(obs)), table, k, 1)
 
 
 @pytest.mark.parametrize("length", [8, 17, 33])
@@ -215,15 +217,39 @@ def test_bits_table_is_the_packed_compat_table(k, length):
     state = hm.hopper_state_from_numpy(es, "cpu", "tile_top2")
     k_pad = state.k_pad
     compat = _compat_classmajor(es.masks, k_pad, 4)  # [4L, k_pad] 0/1
+    kp = 32 * -(-4 * length // 32)
+    kp = kp if kp <= 128 else 128 * -(-kp // 128)
+    assert k_pad % 128 == 0 and k_pad - k < 128
+    assert state.table.dtype == torch.int8 and state.table.is_contiguous()
+    assert kp == hm.table_depth(length)
+    sb = min(kp, 128)  # depth bytes of one staged slice
+    assert tuple(state.table.shape) == (k_pad // 128, kp // sb, 16, sb // 16, 8, 16)
+    # entry j of column c sits where wgmma's no-swizzle K-major B tile has it:
+    # sub-tile, slice, 8-column group, 16-byte depth chunk, column, byte
+    tiled = state.table.numpy()
+    got = tiled.transpose(0, 2, 4, 1, 3, 5).reshape(k_pad, kp)
+    np.testing.assert_array_equal(got[:, : 4 * length], compat.T)
+    assert not got[:, 4 * length:].any()  # the depth pad multiplies to nothing
+    rng2 = np.random.default_rng(0)
+    for c, j in zip(rng2.integers(0, k_pad, 50), rng2.integers(0, 4 * length, 50)):
+        off = ((c // 128 * (kp // sb) + j // sb) * 128 * sb
+               + ((c % 128 // 8) * (sb // 16) + j % sb // 16) * 128 + c % 8 * 16 + j % 16)
+        assert tiled.reshape(-1)[off] == compat[j, c]
+    np.testing.assert_array_equal(
+        hm.table_columns(state.table, 0, k_pad, 4 * length).numpy(), compat
+    )
+    # the bit words the kernel builds its one-hot against are those of the
+    # lab's bit table (the previous layout) of the same columns
     nw = -(-4 * length // 32)
     padded = np.zeros((nw * 32, k_pad), dtype=np.uint64)
     padded[: 4 * length] = compat
     shifts = np.arange(32, dtype=np.uint64)[None, :, None]
     want = (padded.reshape(nw, 32, k_pad) << shifts).sum(axis=1)
     want = want.astype(np.uint32).T  # [k_pad, nw]
-    assert state.table.dtype == torch.uint32
-    assert tuple(state.table.shape) == (k_pad, nw)
-    np.testing.assert_array_equal(state.table.numpy(), want)
+    from fqtk_tpu_torch.ops.lab_kernels import pack_compat_bits
+
+    bits = pack_compat_bits(torch.from_numpy(got[:, : 4 * length].T.copy()))
+    np.testing.assert_array_equal(bits.numpy(), want)
 
 
 def _clustered_window(rng, barcodes, b, cells):
