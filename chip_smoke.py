@@ -45,7 +45,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              against its plain version bit for bit at the shapes that run
              gave it — B = 131,072 and 65,536 on the rate slope's own rows —
              and at a ragged B = 15,872 of the spot check's reads, with
-             kernel and plain times at B = 16,384.
+             kernel and plain times at B = 16,384 and, for the variants of
+             the tensor-core lab kernels (``lab_probe``, ``clamp8_top2``),
+             the design's stream bytes per (row, column) pair and the
+             shared-memory stream bound beside the int8 bound.
 
 After the last phase the script fails if ``jax`` or any module of the JAX
 package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
@@ -165,6 +168,40 @@ def cuda_median_ms(fn, reps: int) -> float:
 #: tensor-core operations per second, device memory bytes per second
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+#: shared-memory bytes an SM moves per clock (32 banks of 4 bytes)
+SMEM_BYTES_PER_CLK_SM = 128
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def stream_bound(pairs: int, stream_bytes: int, depth: int, sms: int, clock_hz: float) -> float:
+    """ms the shared memory of ``sms`` SMs needs for a lab design's streams:
+    per (row, column) pair ``stream_bytes`` of the design's own reads and
+    writes plus ``depth / 64`` bytes of ``wgmma``'s B reads (a sub-tile of N
+    columns x ``depth`` bytes is read once per 64-row warpgroup), at
+    ``SMEM_BYTES_PER_CLK_SM`` per SM and clock."""
+    per_pair = stream_bytes + depth / 64.0
+    return pairs * per_pair / (SMEM_BYTES_PER_CLK_SM * sms * clock_hz) * 1e3
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spills and ``wgmma`` serialization warnings of a kernel's
+    build log (``-Xptxas -v``)."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    serialized = sum(
+        1 for line in log.splitlines() if re.search(r"C7514|C7520|serializ", line))
+    return dict(entries=len(regs), regs_min=min(regs, default=0),
+                regs_max=max(regs, default=0), spill_bytes=sum(spills),
+                serialized=serialized)
 
 
 def top2_bound(k_counted: int, depth: int, b: int, width: int, table_bytes: int):
@@ -667,6 +704,8 @@ def phase_single_cell(card: str) -> dict:
 LAB_K, LAB_L = 737_280, 16  # the lab's defaults (FQTK_LAB_K, FQTK_LAB_L)
 LAB_B = 16_384
 LAB_KERNEL_NAMES = ("mma_probe", "lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
+#: the lab kernels on the tensor-core engine: no spill, no serialized wgmma
+ENGINE_LAB_KERNELS = ("lab_probe", "clamp8_top2")
 
 
 def phase_lab(card: str) -> dict:
@@ -676,7 +715,9 @@ def phase_lab(card: str) -> dict:
     t0 = time.perf_counter()
     codes, masks = lab.lab_inputs(LAB_K, LAB_L)
     log(f"[lab] {LAB_K:,} barcodes of L = {LAB_L} made in {time.perf_counter() - t0:.1f} s; "
-        f"v3w_clamp8 runs clamp8_top2 (POPC counting has no MXU output type)")
+        f"v3w_clamp8 runs clamp8_top2 (wgmma's s8 product accumulates in s32 only)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
 
     # the path: the lab's run, counts set to 0 just before and read just after
     variants, per = {}, {}
@@ -738,10 +779,21 @@ def phase_lab(card: str) -> dict:
         row["bound_ms"], row["bound_by"] = top2_bound(
             k_counted, 4 * LAB_L, LAB_B, obs.shape[1], table.numel() * table.element_size()
         )
+        streams = ""
+        if go.name in lk.STREAM_BYTES:
+            # a model from the card's sheet, for this line only: it is not
+            # kept in `row`, whose numbers are this run's measurements
+            per_pair = lk.STREAM_BYTES[go.name]
+            stream_ms = stream_bound(
+                LAB_B * k_counted, per_pair, lk.mma_depth(LAB_L), sms, clock_hz)
+            streams = (f"; streams {per_pair} B per pair, shared-memory "
+                       f"bound {stream_ms:.4f} ms at {sms} SMs x "
+                       f"{clock_hz / 1e6:.0f} MHz "
+                       f"({100 * stream_ms / row['ms']:.1f}% reached)")
         log(f"[lab] {label:24s} K={LAB_K} L={LAB_L} B={LAB_B}: kernel {row['ms']:.4f} ms "
             f"(median of 5), plain {row['plain_ms']:.4f} ms (one call after a warm one); "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-            f"({100 * row['bound_ms'] / row['ms']:.1f}% reached); "
+            f"({100 * row['bound_ms'] / row['ms']:.1f}% reached){streams}; "
             f"bit-identical at B {', '.join(str(len(c)) for c in cases)} ({card})")
     lib_cols = (1 << 28) // LAB_B // 128 * 128
     library_ms = int_mm_counts_ms(obs, LAB_L, lib_cols) * (LAB_K / lib_cols)
@@ -771,11 +823,14 @@ def main() -> int:
     log(f"[build] CUDA kernels ready in {time.perf_counter() - t0:.1f} s (one nvcc each, "
         "started together)")
     for kname, info in built.items():
+        ptx = ptxas_summary(str(info["log"]))
         log(f"[build] {kname} {'built' if info['built'] else 'reused'} in "
-            f"{info['seconds']:.1f} s -> {Path(info['path']).relative_to(ROOT)}")
-        for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            f"{info['seconds']:.1f} s -> {Path(info['path']).relative_to(ROOT)}: "
+            f"{ptx['entries']} kernels, {ptx['regs_min']}-{ptx['regs_max']} registers, "
+            f"{ptx['spill_bytes']} spill bytes, {ptx['serialized']} wgmma serialization "
+            "warnings")
+        if kname in ENGINE_LAB_KERNELS and (ptx["spill_bytes"] or ptx["serialized"]):
+            raise AssertionError(f"{kname}: the build spills or serializes wgmma: {ptx}")
 
     # phase 3: kernels against plain
     t0 = time.perf_counter()

@@ -14,131 +14,187 @@
 // ext1 = (m1[p] * nt_pow2 + t1[p]) * tile_k + p: best, idx and next with
 // counts clamped at W, bit for bit (lab_kernels.clamp8_top2_reference is
 // the plain version).  v3w_clamp8 differs from v3_clamp8 on the TPU only in
-// the MXU's output type (int8 instead of int32); counting here is by POPC,
-// which has no such type, so both names run this kernel.
+// the MXU's output type (int8 instead of int32); wgmma's s8 product
+// accumulates in s32 only, so both names run this kernel.
 //
-// Design and bounds: see lab_common.cuh.  The three byte streams take
-// 3 x 32 x 256 = 24 KB of shared memory per CTA; each step is three shared
-// loads and three stores per (row, column) pair, beside the count's NW
-// broadcast loads and NW AND + POPC.  A model from instruction counts, not
-// read from profiler counters: at L = 16 that is seven shared-memory warp
-// accesses per 32 pairs, so the shared pipe (one warp-wide access per
-// clock, ~4.6 pairs/clk/SM) binds before the POPC pipe (8 pairs/clk/SM):
-// narrowing a stream to a byte saves bytes but not instructions while each
-// thread holds one element per access.  Packing four positions per 32-bit
-// word (__vminu4-style SIMD) is later work.
+// Design (csrc/lab_mma.cuh has the walk, the table and the streams' layout).
+// Counts come from the tensor-core engine of csrc/mma_count.cuh: CTA = 128
+// rows x N = 128 column positions, one wgmma group per K tile.  The three
+// byte streams take 3 x 16 KB of shared memory beside a ring of three steps
+// of two 8 KB K tiles (L 16): 96 KB, two CTAs (four warpgroups) per SM.
+// Every step reads and writes all three streams, 16 positions per 128-bit
+// access.
+//
+// The update runs in packed 16-bit lanes (DPX min / max, one instruction
+// per two positions), not one position at a time.  Since kb ascends and a
+// tie keeps the first tile, the pair (m1, t1) under `better = c8 < prev` is
+// the minimum of the lexicographic key c8 * 256 + kb (W <= 127 and kb <= 255
+// keep it a positive int16; the initial (W, 0) is the key W * 256): one
+// 16x2 min updates both streams, which stay one int8 and one uint8 stream
+// in shared memory.  Likewise max(prev, c8) is the high byte of the max of
+// the two keys, and m2 (<= W <= 127) compares as m2 * 256 + anything.  Per
+// word of four positions: 2 PRMT (counts * 256 into lanes), 2 adds (+ kb), 2
+// PRMT (m1, t1 bytes -> keys), 1 shift (m2), 6 DPX min / max (the clamp at
+// W * 256 + kb rides the three-input min), 3 PRMT (keys -> bytes): 16
+// integer instructions, beside 6 B of stream traffic per position.
+//
+// What bounds it on this card: the operations bound is that of the product
+// (2 * B * k_padded * KP int8 at 1,979 TOP/s); the streams (6 B per pair
+// through shared memory at 128 B per clock and SM, plus wgmma's B reads) and
+// the packed update (4 integer instructions per pair on 64 lanes per clock
+// and SM) both sit at about a third of that rate, so the design's cost shows.
 //
 // Launch contract: launches on the caller's stream, allocates nothing,
 // returns cudaGetLastError() (negative on a rejected argument).
 
 #include "lab_common.cuh"
+#include "lab_mma.cuh"
 
 namespace {
 
-using namespace lab;
+using namespace labm;
 
-template <int NW>
-__global__ void __launch_bounds__(kThreads)
-clamp8_pass1(const uint8_t* __restrict__ obs, int64_t b, int width,
-             const uint32_t* __restrict__ bits, int length, int tile_k,
-             int n_k_tiles, int w_clamp, int nt_pow2,
-             int32_t* __restrict__ partial, int64_t n_row_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(16) uint32_t stage[kChunkTiles * kSlice * NW];
-  volatile int8_t* m1 = reinterpret_cast<volatile int8_t*>(smem);
-  volatile int8_t* m2 = m1 + kSlice * kThreads;
-  volatile uint8_t* t1 = reinterpret_cast<volatile uint8_t*>(m2 + kSlice * kThreads);
+struct Clamp8 {
+  static constexpr int kStreamBytes = 3;  // m1, m2 int8 and t1 uint8
+  struct Params {
+    int w_clamp, nt_pow2;
+  };
 
-  const int t = threadIdx.x;
-  const int64_t row = (blockIdx.x % n_row_tiles) * kThreads + t;
-  const int slice = (int)(blockIdx.x / n_row_tiles);
-  const int s0 = slice * kSlice;
-  const bool valid = row < b;
+  template <int N>
+  struct Visitor {
+    static constexpr int kChunks = N / 32;      // per thread and stream
+    static constexpr int kStream = kRows * N;   // bytes of one stream
+    const uint32_t m1s, m2s, t1s;
+    const Params p;
+    const int s0, tile_k, t;
 
-  uint32_t oh[NW];
-  if (valid) load_onehot<NW>(obs, row, width, length, oh);
+    __device__ Visitor(uint32_t streams, const Params& p_, int s0_,
+                       int tile_k_, int t_)
+        : m1s(streams), m2s(streams + kStream), t1s(streams + 2 * kStream),
+          p(p_), s0(s0_), tile_k(tile_k_), t(t_) {}
+
+    __device__ __forceinline__ void init() {
+      const uint32_t w4 = (uint32_t)p.w_clamp * 0x01010101u;
+      fill_stream(m1s, kChunks, w4);
+      fill_stream(m2s, kChunks, w4);
+      fill_stream(t1s, kChunks, 0u);
+    }
+
+    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int s, int j) {
+      fence_acc(acc);
+      const int kb = s * kStageTiles + j;
+      const uint32_t kb2 = (uint32_t)kb * 0x00010001u;
+      const uint32_t wkb = (uint32_t)p.w_clamp * 0x01000100u + kb2;
 #pragma unroll
-  for (int p = 0; p < kSlice; ++p) {
-    m1[p * kThreads + t] = (int8_t)w_clamp;
-    m2[p * kThreads + t] = (int8_t)w_clamp;
-    t1[p * kThreads + t] = 0;
-  }
-
-  for (int kb0 = 0; kb0 < n_k_tiles; kb0 += kChunkTiles) {
-    const int ct = min(kChunkTiles, n_k_tiles - kb0);
-    __syncthreads();  // the previous chunk has been consumed
-    stage_chunk<NW>(bits, tile_k, s0, kb0, ct, stage);
-    __syncthreads();
-    if (!valid) continue;
-    for (int j = 0; j < ct; ++j) {
-      const int kb = kb0 + j;
-      const uint32_t* cols = stage + j * kSlice * NW;
-#pragma unroll 8
-      for (int p = 0; p < kSlice; ++p) {
-        const int32_t c8 = min(count_of<NW>(oh, cols + p * NW), w_clamp);
-        const int i = p * kThreads + t;
-        const int32_t prev = m1[i];
-        const uint8_t tprev = t1[i];
-        const bool better = c8 < prev;
-        m1[i] = (int8_t)(better ? c8 : prev);
-        t1[i] = better ? (uint8_t)kb : tprev;
-        m2[i] = (int8_t)min((int32_t)m2[i], max(prev, c8));
+      for (int c = 0; c < kChunks; ++c) {
+        Word4 m1 = lds128(chunk_addr(m1s, c));
+        Word4 t1 = lds128(chunk_addr(t1s, c));
+        Word4 m2 = lds128(chunk_addr(m2s, c));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int rr = WordAt<N>::rr(4 * c + w);
+          const int ja = WordAt<N>::ja(4 * c + w);
+          const int ia = 4 * ja + 2 * rr, ib = 4 * (ja + 1) + 2 * rr;
+          // lanes of "0": bytes 0 and 2 of the word, positions (ja, e0) and
+          // (ja + 1, e0); of "1": bytes 1 and 3, (ja, e1) and (ja + 1, e1).
+          // count * 256 per lane (byte 3 of a count is 0) + kb: this step's
+          // key before its clamp at W * 256 + kb
+          const uint32_t x0 = __byte_perm(acc[ia], acc[ib], 0x4703) + kb2;
+          const uint32_t x1 =
+              __byte_perm(acc[ia + 1], acc[ib + 1], 0x4703) + kb2;
+          // the running keys m1 * 256 + t1 from the two byte streams, and
+          // their minimum with the clamped key
+          const uint32_t p0 = __byte_perm(m1.w[w], t1.w[w], 0x2604);
+          const uint32_t p1 = __byte_perm(m1.w[w], t1.w[w], 0x3715);
+          const uint32_t n0 = __vimin3_s16x2(p0, x0, wkb);
+          const uint32_t n1 = __vimin3_s16x2(p1, x1, wkb);
+          // m2 in the high byte of each lane (the low byte does not matter)
+          // against max(prev, count), the high byte of the larger key: m2
+          // never exceeds W, so the count needs no clamp here
+          const uint32_t s0_ = min16x2(m2.w[w] << 8, max16x2(p0, x0));
+          const uint32_t s1_ = min16x2(m2.w[w], max16x2(p1, x1));
+          m1.w[w] = __byte_perm(n0, n1, 0x7351);
+          t1.w[w] = __byte_perm(n0, n1, 0x6240);
+          m2.w[w] = __byte_perm(s0_, s1_, 0x7351);
+        }
+        sts128(chunk_addr(m1s, c), m1);
+        sts128(chunk_addr(t1s, c), t1);
+        sts128(chunk_addr(m2s, c), m2);
       }
     }
-  }
-  if (!valid) return;
-  Top2Keys acc;
-#pragma unroll 8
-  for (int p = 0; p < kSlice; ++p) {
-    const int i = p * kThreads + t;
-    acc.add(((int32_t)m1[i] * nt_pow2 + (int32_t)t1[i]) * tile_k + s0 + p);
-    acc.m2c = min(acc.m2c, (int32_t)m2[i]);
-  }
-  store_top2(partial, tile_k / kSlice, slice, b, row, acc);
-}
 
-template <int NW>
-int launch_clamp8(const uint8_t* obs, int64_t b, int width,
-                  const uint32_t* bits, int length, int tile_k,
-                  int n_k_tiles, int w_clamp, int nt_pow2, int32_t* partial,
-                  int64_t n_row_tiles, cudaStream_t s) {
-  return launch_pass1(clamp8_pass1<NW>, 3 * kSlice * kThreads, n_row_tiles,
-                      tile_k / kSlice, s, obs, b, width, bits, length, tile_k,
-                      n_k_tiles, w_clamp, nt_pow2, partial);
-}
+    // The body's emit over the thread's positions, the quad's fold, and the
+    // rows' partials.
+    __device__ __forceinline__ void emit(const LabArgs& a, int slice,
+                                         int64_t r_lo, int64_t r_hi) {
+      lab::Top2Keys k[2];
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const Word4 m1 = lds128(chunk_addr(m1s, c));
+        const Word4 t1 = lds128(chunk_addr(t1s, c));
+        const Word4 m2 = lds128(chunk_addr(m2s, c));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int rr = WordAt<N>::rr(4 * c + w);
+          const int ja = WordAt<N>::ja(4 * c + w);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int32_t v1 = (int8_t)(m1.w[w] >> (8 * q));
+            const int32_t tt = (uint8_t)(t1.w[w] >> (8 * q));
+            const int32_t v2 = (int8_t)(m2.w[w] >> (8 * q));
+            const int pos = s0 + 8 * (ja + (q >> 1)) + 2 * t + (q & 1);
+            k[rr].add((v1 * p.nt_pow2 + tt) * tile_k + pos);
+            k[rr].m2c = min(k[rr].m2c, v2);
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          const int32_t o1 = __shfl_xor_sync(0xffffffffu, k[rr].g1, off);
+          const int32_t o2 = __shfl_xor_sync(0xffffffffu, k[rr].g2, off);
+          const int32_t om = __shfl_xor_sync(0xffffffffu, k[rr].m2c, off);
+          k[rr].g2 = min(min(k[rr].g2, o2), max(k[rr].g1, o1));
+          k[rr].g1 = min(k[rr].g1, o1);
+          k[rr].m2c = min(k[rr].m2c, om);
+        }
+      }
+      if (t != 0) return;
+      if (r_lo < a.b)
+        lab::store_top2(a.partial, a.tile_k / N, slice, a.b, r_lo, k[0]);
+      if (r_hi < a.b)
+        lab::store_top2(a.partial, a.tile_k / N, slice, a.b, r_hi, k[1]);
+    }
+  };
+};
 
 }  // namespace
 
 extern "C" int fqtk_clamp8_top2(const void* obs, int64_t b, int width,
-                                const void* bits, int nw, int length,
+                                const void* table, int kp, int length,
                                 int tile_k, int n_k_tiles, int w_clamp,
                                 int nt_pow2, void* partial, void* best,
                                 void* idx, void* next, void* stream) {
   int64_t n_row_tiles = 0;
-  const int rc = check_args(b, width, bits, nw, length, tile_k, n_k_tiles,
-                            &n_row_tiles);
+  const int rc = check_lab_args(b, width, table, kp, length, tile_k, n_k_tiles,
+                                &n_row_tiles);
   if (rc != 0) return rc;
   if (w_clamp < 1 || w_clamp > 127 || n_k_tiles > 255 ||
       nt_pow2 < n_k_tiles || (nt_pow2 & (nt_pow2 - 1)))
     return -1;
-  const uint8_t* o = static_cast<const uint8_t*>(obs);
-  const uint32_t* w = static_cast<const uint32_t*>(bits);
   int32_t* part = static_cast<int32_t*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = 0;
-#define FQTK_CLAMP8(N)                                                      \
-  e = launch_clamp8<N>(o, b, width, w, length, tile_k, n_k_tiles, w_clamp,  \
-                       nt_pow2, part, n_row_tiles, s)
-  switch (nw) {
-    case 1: FQTK_CLAMP8(1); break;
-    case 2: FQTK_CLAMP8(2); break;
-    case 3: FQTK_CLAMP8(3); break;
-    default: FQTK_CLAMP8(4); break;
-  }
-#undef FQTK_CLAMP8
-  if (e != 0) return e;
-  top2_fold<<<(unsigned)n_row_tiles, kThreads, 0, s>>>(
-      part, b, tile_k / kSlice, tile_k, nt_pow2, static_cast<int32_t*>(best),
-      static_cast<int32_t*>(idx), static_cast<int32_t*>(next));
+  const LabArgs args{static_cast<const uint8_t*>(obs), b, width, length,
+                     static_cast<const uint8_t*>(table), kp, tile_k,
+                     n_k_tiles, n_row_tiles, part};
+  const cudaError_t e =
+      launch_lab<Clamp8>(args, Clamp8::Params{w_clamp, nt_pow2}, s);
+  if (e != cudaSuccess) return (int)e;
+  lab::top2_fold<<<(unsigned)((b + lab::kThreads - 1) / lab::kThreads),
+                   lab::kThreads, 0, s>>>(
+      part, b, tile_k / width_of(tile_k), tile_k, nt_pow2,
+      static_cast<int32_t*>(best), static_cast<int32_t*>(idx),
+      static_cast<int32_t*>(next));
   return (int)cudaGetLastError();
 }

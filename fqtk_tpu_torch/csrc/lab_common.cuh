@@ -1,8 +1,10 @@
-// Shared pieces of the kernel lab's Hopper kernels (sm_90a):
-// csrc/lab_probe.cu (TPU kernel #4), clamp16_top2.cu (#5), group_top2.cu
-// (#6) and clamp8_top2.cu (#7), the counterparts of the Pallas bodies in
-// scripts/kernel_lab.py.  csrc/mma_probe.cu (#3) counts on the tensor
-// cores instead and uses only check_args and load_onehot from here.
+// Shared pieces of the kernel lab's POPC-counting Hopper kernels (sm_90a):
+// csrc/clamp16_top2.cu (TPU kernel #5) and group_top2.cu (#6), counterparts
+// of Pallas bodies in scripts/kernel_lab.py.  The lab's other kernels count
+// on the tensor cores: csrc/mma_probe.cu (#3) uses only check_args and
+// load_onehot from here, csrc/clamp8_top2.cu (#7) only the emit's key fold
+// (Top2Keys, store_top2, top2_fold), csrc/lab_probe.cu (#4) nothing; their
+// walk is csrc/lab_mma.cuh.
 //
 // The TPU bodies walk the K tiles of the lab's table in order (the grid's
 // second axis) and keep a state per (row, column position p < tile_k) in

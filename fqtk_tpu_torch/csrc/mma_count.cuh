@@ -73,10 +73,15 @@
 // (m1, m2) pairs meet at the end by shuffles with the key merge
 // `m2 = min(min(m2, o2), max(m1, o1)); m1 = min(m1, o1)`.
 //
-// Besides the engine (count_top2) the header holds what the two kernels'
-// first passes share: the pass-1 kernel over a (row tile, chunk) grid, which
-// differs per scheme only in the key's column base and in what a row writes
-// (a `Scheme`), its launch by table depth, and the argument checks.
+// The engine is in three parts (below, "the engine"): the one-hot A
+// fragments, the product loop over a source of table blocks, and a visitor
+// of each sub-tile's counts.  Kernels #1 and #2 use them through count_top2
+// (consecutive 256-column stages, the running top-2); the kernel lab's
+// lab_probe and clamp8_top2 (TPU kernels #4 and #7) through csrc/lab_mma.cuh.
+// The header also holds what the two top-2 kernels' first passes share: the
+// pass-1 kernel over a (row tile, chunk) grid, which differs per scheme only
+// in the key's column base and in what a row writes (a `Scheme`), its launch
+// by table depth, and the argument checks.
 
 #pragma once
 
@@ -121,19 +126,31 @@ __device__ __forceinline__ void mbar_init(uint64_t* bars, int n) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
-// aligned; `bar` completes its current phase when they have landed.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
+// One arrival at `bar`, whose current phase then completes when `bytes` more
+// bytes of bulk copies have landed.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    bar),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, counted at `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// One copy that completes `bar`'s current phase when it has landed.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  mbar_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -159,9 +176,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keeps the compiler from moving reads of an accumulator across a wait.
-__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a B sub-tile in the no-swizzle K-major
@@ -172,34 +190,66 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t sbo) {
          ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
 }
 
-// d (+)= a[64 x 32] * b[32 x 128]: a from registers (rows g, g + 8 of the
-// warp's 16; depth t*4.. and 16 + t*4..), b by descriptor.  scale_d = 0
-// overwrites d.
-__device__ __forceinline__ void wgmma_n128(int32_t (&d)[64],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+// d (+)= a[64 x 32] * b[32 x N], N = 128, 64 or 32 columns: a from registers
+// (rows g, g + 8 of the warp's 16; depth t*4.. and 16 + t*4..), b by
+// descriptor.  scale_d = 0 overwrites d.  A thread holds N/2 sums: d[4j + 2rr
+// + e] is row g + 8rr, column 8j + 2t + e of the sub-tile.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  static_assert(N == 128 || N == 64 || N == 32, "instantiated widths");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
 }
 
 // --- the one-hot (A) -------------------------------------------------------
@@ -332,6 +382,124 @@ struct RowTop2 {
 };
 
 // --- the engine ------------------------------------------------------------
+//
+// Three parts, each usable alone: the one-hot A fragments of the thread's two
+// rows (load_a), the product loop over a ring of bulk copies (product_loop),
+// and what is done with each sub-tile's counts (a visitor).  count_top2 puts
+// them together for kernels #1 and #2; the kernel lab's kernels
+// (csrc/lab_mma.cuh) walk the table differently and visit with their own
+// stream updates.
+
+// The A fragments of the whole depth KP = 32 * NK1 (at most 128: L <= 32)
+// for rows r_lo and r_hi = r_lo + 8; a row >= b is all zero.
+template <int NK1>
+__device__ __forceinline__ void load_a(const uint8_t* __restrict__ obs,
+                                       int64_t b, int width, int length,
+                                       int64_t r_lo, int64_t r_hi, int t,
+                                       uint32_t (&a)[NK1][4]) {
+  uint32_t lo[NK1], hi[NK1];
+#pragma unroll
+  for (int ks = 0; ks < NK1; ++ks) lo[ks] = hi[ks] = 0u;
+  if (r_lo < b) onehot_words<NK1>(obs + r_lo * width, width, length, lo);
+  if (r_hi < b) onehot_words<NK1>(obs + r_hi * width, width, length, hi);
+#pragma unroll
+  for (int ks = 0; ks < NK1; ++ks) a_frag(a[ks], lo[ks], hi[ks], t);
+}
+
+// The product loop: for every step s of `src` and every sub-tile j of the
+// step, the counts of the CTA's 128 rows against the sub-tile's N columns at
+// depth KP = 32 * NK1, handed to `vis`.
+//
+//   Source   which blocks of the tiled table step s is:
+//            int steps();
+//            int subs(int s): the sub-tiles of N columns x KP bytes of step
+//            s, 1 .. STAGE_SUBS;
+//            void load(int s, uint32_t dst, uint32_t bar, uint32_t
+//            sub_bytes): start the bulk copies of step s's sub-tiles to
+//            consecutive `sub_bytes` at shared address `dst`, counted at
+//            `bar` (one mbar_expect of their bytes).
+//   Visitor  void visit(int32_t (&acc)[N / 2], int s, int j): the thread's
+//            counts (rows g and g + 8 of its warp's 16, columns 8jj + 2t + e
+//            of the sub-tile; wgmma_s8 has the order) after the product has
+//            completed.  It must read `acc` behind fence_acc.
+//
+// `ring` is RING * STAGE_SUBS * N * KP bytes of shared memory, 128-byte
+// aligned.  Thread 0 starts a step's copies, those of the next steps in
+// flight while step s is multiplied; the CTA meets at a barrier once per
+// step, which frees the slot of step s - 1.
+template <int NK1, int N, int STAGE_SUBS, int RING, class Source,
+          class Visitor>
+__device__ __forceinline__ void product_loop(const uint32_t (&a)[NK1][4],
+                                             const Source& src, uint8_t* ring,
+                                             Visitor& vis) {
+  static_assert(RING >= 2 && RING <= kMaxRing, "one mbarrier per slot");
+  constexpr int kSubBytes = N * 32 * NK1;
+  constexpr int kStageBytes = STAGE_SUBS * kSubBytes;
+  constexpr int kRing = RING;
+  constexpr uint32_t kSbo = 2 * NK1 * 128;
+  __shared__ __align__(8) uint64_t bars[kMaxRing];
+  const uint32_t sbase = smem_u32(ring);
+  if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
+  __syncthreads();  // the mbarriers are initialized
+  const int n_steps = src.steps();
+  auto fill = [&](int s) {  // thread 0
+    src.load(s, sbase + (s % kRing) * kStageBytes, smem_u32(bars + s % kRing),
+             kSubBytes);
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kRing - 1 && s < n_steps; ++s) fill(s);
+  int32_t acc[N / 2];
+  for (int s = 0; s < n_steps; ++s) {
+    mbar_wait(smem_u32(bars + s % kRing), (s / kRing) & 1);
+    __syncthreads();  // step s has landed; step s - 1 has been multiplied
+    if (threadIdx.x == 0 && s + kRing - 1 < n_steps) fill(s + kRing - 1);
+    const int nsub = src.subs(s);
+    const uint32_t st = sbase + (s % kRing) * kStageBytes;
+    // not unrolled: a product under a branch of its own makes ptxas
+    // serialize it (C7520)
+#pragma unroll 1
+    for (int j = 0; j < nsub; ++j) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < NK1; ++ks)
+        wgmma_s8<N>(acc, a[ks], b_desc(st + j * kSubBytes + ks * 256, kSbo),
+                    ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      vis.visit(acc, s, j);
+    }
+  }
+}
+
+// Source of kernels #1 and #2: consecutive stages of kStageSubs sub-tiles of
+// the `n_cols` columns from `base` on (the table at column c_begin; K_pad <
+// 2^31 keeps the offsets in an int); a stage is one contiguous copy.
+struct ColumnStages {
+  static constexpr int kStageCols = kStageSubs * kSub;
+  const uint8_t* base;
+  int kp, n_cols;
+  __device__ __forceinline__ int steps() const {
+    return (n_cols + kStageCols - 1) / kStageCols;
+  }
+  __device__ __forceinline__ int subs(int s) const {
+    return min(kStageCols, n_cols - s * kStageCols) / kSub;
+  }
+  __device__ __forceinline__ void load(int s, uint32_t dst, uint32_t bar,
+                                       uint32_t sub_bytes) const {
+    bulk_load(dst, base + (int64_t)s * kStageCols * kp,
+              (uint32_t)subs(s) * sub_bytes, bar);
+  }
+};
+
+// Visitor of kernels #1 and #2: the running top-2 over ColumnStages' columns.
+struct Top2Visitor {
+  RowTop2& top;
+  const int64_t c_begin;
+  const int t;
+  __device__ __forceinline__ void visit(int32_t (&acc)[64], int s, int j) {
+    top.visit(acc, c_begin + (s * kStageSubs + j) * kSub, t);
+  }
+};
 
 // The two smallest keys of each of the CTA's 128 rows over columns
 // [c_begin, c_end) (multiples of 128, c_end <= K_pad; columns >= k masked).
@@ -350,61 +518,25 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
                                            int kp, int64_t c_begin,
                                            int64_t c_end, int64_t row0,
                                            uint8_t* smem, RowTop2& top) {
-  constexpr int kSliceBytes = 32 * NK1;
-  constexpr int kSubBytes = kSub * kSliceBytes;
-  constexpr uint32_t kSbo = 2 * NK1 * 128;
-  __shared__ __align__(8) uint64_t bars[kMaxRing];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int64_t r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
-  const uint32_t sbase = smem_u32(smem);
-  if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
-  int32_t acc[64];
 
   if constexpr (!MULTI) {
-    constexpr int kStageBytes = kStageSubs * kSubBytes;
-    constexpr int kStageCols = kStageSubs * kSub;
-    constexpr int kRing = ring_stages(NK1);
+    const int64_t r_lo = row0 + warp * 16 + g;
     uint32_t a[NK1][4];
-    {
-      uint32_t lo[NK1], hi[NK1];
-#pragma unroll
-      for (int ks = 0; ks < NK1; ++ks) lo[ks] = hi[ks] = 0u;
-      if (r_lo < b) onehot_words<NK1>(obs + r_lo * width, width, length, lo);
-      if (r_hi < b) onehot_words<NK1>(obs + r_hi * width, width, length, hi);
-#pragma unroll
-      for (int ks = 0; ks < NK1; ++ks) a_frag(a[ks], lo[ks], hi[ks], t);
-    }
-    __syncthreads();  // the mbarriers are initialized
-    const int n_stages = (int)((c_end - c_begin + kStageCols - 1) / kStageCols);
-    auto fill = [&](int s) {  // thread 0: stage s is one contiguous copy
-      const int64_t c0 = c_begin + (int64_t)s * kStageCols;
-      const int ncols = (int)min((int64_t)kStageCols, c_end - c0);
-      bulk_load(sbase + (s % kRing) * kStageBytes, table + c0 * kp,
-                (uint32_t)ncols * kSliceBytes, smem_u32(bars + s % kRing));
-    };
-    if (threadIdx.x == 0)
-      for (int s = 0; s < kRing - 1 && s < n_stages; ++s) fill(s);
-    for (int s = 0; s < n_stages; ++s) {
-      mbar_wait(smem_u32(bars + s % kRing), (s / kRing) & 1);
-      __syncthreads();  // stage s has landed; stage s - 1 has been multiplied
-      if (threadIdx.x == 0 && s + kRing - 1 < n_stages) fill(s + kRing - 1);
-      const int64_t c0 = c_begin + (int64_t)s * kStageCols;
-      const int nsub = (int)min((int64_t)kStageCols, c_end - c0) / kSub;
-      const uint32_t st = sbase + (s % kRing) * kStageBytes;
-      for (int j = 0; j < nsub; ++j) {
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < NK1; ++ks)
-          wgmma_n128(acc, a[ks], b_desc(st + j * kSubBytes + ks * 256, kSbo),
-                     ks);
-        wgmma_commit();
-        wgmma_wait<0>();
-        top.visit(acc, c0 + j * kSub, t);
-      }
-    }
+    load_a<NK1>(obs, b, width, length, r_lo, r_lo + 8, t, a);
+    const ColumnStages src{table + c_begin * kp, kp, (int)(c_end - c_begin)};
+    Top2Visitor vis{top, c_begin, t};
+    product_loop<NK1, kSub, kStageSubs, ring_stages(NK1)>(a, src, smem, vis);
   } else {
     static_assert(!MULTI || NK1 == 4, "sliced depth walks 128 bytes a slice");
+    constexpr int kSliceBytes = 32 * NK1;
+    constexpr int kSubBytes = kSub * kSliceBytes;
+    constexpr uint32_t kSbo = 2 * NK1 * 128;
+    __shared__ __align__(8) uint64_t bars[kMaxRing];
+    const uint32_t sbase = smem_u32(smem);
+    if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
+    int32_t acc[64];
     const int n_slices = kp / kSliceBytes;
     const int nw = n_slices * NK1;  // one-hot bit words per row, <= 32
     uint32_t* bits =
@@ -444,7 +576,8 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < NK1; ++ks)
-        wgmma_n128(acc, a[ks], b_desc(st + ks * 256, kSbo), (sl | ks) != 0);
+        wgmma_s8<kSub>(acc, a[ks], b_desc(st + ks * 256, kSbo),
+                       (sl | ks) != 0);
       wgmma_commit();
       wgmma_wait<0>();
       if (sl == n_slices - 1) top.visit(acc, c_begin + sub * kSub, t);

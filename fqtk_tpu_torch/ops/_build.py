@@ -59,7 +59,7 @@ ENTRY_POINTS = {
     # the kernel lab (ops/lab_kernels.py)
     "lab_probe": [
         _P, _I64, _I32,  # obs, b, width
-        _P, _I32, _I32,  # bits, nw, length
+        _P, _I32, _I32,  # table (tiled int8), kp, length
         _I32, _I32,  # tile_k, n_k_tiles
         _I32, _I32, _I32,  # mode, ck, sink_flag
         _P, _P,  # partial, out
@@ -76,7 +76,8 @@ ENTRY_POINTS = {
     **{
         stem: [
             _P, _I64, _I32,  # obs, b, width
-            _P, _I32, _I32,  # bits, nw, length
+            # bits, nw, length (clamp8_top2: the tiled int8 table, kp, length)
+            _P, _I32, _I32,
             _I32, _I32,  # tile_k, n_k_tiles
             _I32, _I32,  # w_clamp (group P for group_top2), nt_pow2
             _P,  # partial

@@ -10,23 +10,29 @@ Counterparts of the Pallas bodies of ``scripts/kernel_lab.py`` (TPU kernels
 - ``csrc/lab_probe.cu`` (#4, ``make_variant`` -> ``build``, call ``:222``)
   — the bound probes ``v1_m1only``, ``v2_matmul``, ``v2b_store``,
   ``p_i8min`` and ``p_i8minmax``: counts times ``ck`` into one accumulator
-  stream, emit ``min_p(m1[p] * tile_k + p) >> 8``;
+  stream, emit ``min_p(m1[p] * tile_k + p) >> 8``; counts by ``wgmma`` on
+  the engine of ``csrc/mma_count.cuh``;
 - ``csrc/clamp16_top2.cu`` (#5, call ``:314``) — ``v5_clamp16``: top-2
   over int16 keys ``min(count, W) * nt_pow2 + tile`` in two streams;
 - ``csrc/group_top2.cu`` (#6, call ``:419``) — ``v6_group{P}``: exact
   top-2, a register ladder over P K tiles before one update of two int32
   streams;
 - ``csrc/clamp8_top2.cu`` (#7, call ``:515``) — ``v3_clamp8`` and
-  ``v3w_clamp8``: top-2 over int8 clamped counts plus a uint8 first-tile id.
+  ``v3w_clamp8``: top-2 over int8 clamped counts plus a uint8 first-tile id;
+  counts by ``wgmma`` on the same engine.
 
 Every variant reads the lab's table: the class-major 0/1 mismatch table
 padded with **all-ones** columns to ``k_padded = n_k_tiles * tile_k``
-(``kernel_lab.py:62-71``), bit-packed by
-:func:`pack_compat_bits` for the POPC
-kernels, or as int8 ``[k_padded, KP]`` (a column's 4L entries, zero-padded
-to ``KP = 32 * ceil(4L / 32)``) for ``mma_probe``.  A pad column
-counts L mismatches and takes part in every result, as in the JAX lab
-(kernels #1 and #2 mask such columns; these do not).
+(``kernel_lab.py:62-71``), in one of three formats: bit-packed by
+:func:`pack_compat_bits` for the POPC kernels (#5, #6); int8
+``[k_padded, KP]`` (a column's 4L entries, zero-padded to ``KP = 32 *
+ceil(4L / 32)``) for ``mma_probe``; and that int8 table tiled by
+:func:`pack_lab_table_i8` in the order ``wgmma`` reads it for ``lab_probe``
+and ``clamp8_top2``, whose plain versions read it back through
+:func:`lab_table_columns`.  :data:`TABLE_FORMAT` says which kernel reads
+which.  A pad column counts L mismatches
+and takes part in every result, as in the JAX lab (kernels #1 and #2 mask
+such columns; these do not).
 
 The plain versions (``*_reference``) are written as the Pallas bodies
 compute, tile by tile: counts by a float32 one-hot matmul per K tile (exact:
@@ -64,9 +70,29 @@ GROUP_PREFIX = "v6_group"
 #: group sizes ``group_top2.cu`` is instantiated for
 GROUP_SIZES = (2, 4, 8)
 
-#: column positions per CTA in every lab kernel (``kSlice`` of
-#: ``csrc/lab_common.cuh``): ``tile_k`` must be a multiple of it
+#: ``tile_k`` must be a multiple of this: the column positions per CTA of
+#: the POPC kernels (``kSlice`` of ``csrc/lab_common.cuh``) and the smallest
+#: ``wgmma`` width of the tensor-core ones (:func:`lab_width`)
 SLICE = 32
+
+#: the form of the lab's table each kernel and its plain version read:
+#: ``"bits"`` (:func:`pack_compat_bits`), ``"i8"`` (int8 ``[k_padded, KP]``)
+#: or ``"tiled"`` (:func:`pack_lab_table_i8`, the kernels that count by
+#: ``wgmma``)
+TABLE_FORMAT = {
+    "mma_probe": "i8", "lab_probe": "tiled", "clamp16_top2": "bits",
+    "group_top2": "bits", "clamp8_top2": "tiled",
+}
+
+#: bytes of a design's streams that pass through shared memory per (row,
+#: column) pair and K tile, reads and writes, at the TPU body's widths
+STREAM_BYTES = {
+    "v1_m1only": 8, "v2_matmul": 0, "v2b_store": 4, "p_i8min": 2,
+    "p_i8minmax": 4, "v3_clamp8": 6, "v3w_clamp8": 6,
+}
+
+#: the variants of the kernels that read the tiled table
+TILED_VARIANTS = tuple(STREAM_BYTES)
 
 #: the emit's sentinel for the masked first key (``jnp.int32(2**30)``)
 KEY_MASKED = 1 << 30
@@ -94,12 +120,61 @@ def pack_compat_bits(compat: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32).view(torch.uint32)
 
 
-def _unpack_bits(bits: torch.Tensor, wl: int) -> torch.Tensor:
-    """``[n, NW]`` uint32 bit table -> ``[wl, n]`` float32 0/1 (the
-    class-major compat columns it packs)."""
+def _bit_columns(bits: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
+    """``[wl, k1 - k0]`` float32 0/1: columns ``k0 .. k1 - 1`` of the
+    class-major mismatch table that the bit table (:func:`pack_compat_bits`)
+    packs."""
     j = torch.arange(wl, dtype=torch.int32, device=bits.device)
-    words = bits.view(torch.int32)[:, (j // 32).long()]  # [n, wl]
+    words = bits[k0:k1].view(torch.int32)[:, (j // 32).long()]  # [n, wl]
     return ((words >> (j % 32)) & 1).T.to(torch.float32)
+
+
+def _i8_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
+    """The same columns of the int8 ``[k_padded, KP]`` table."""
+    return table[k0:k1, :wl].T.to(torch.float32)
+
+
+def lab_width(tile_k: int) -> int:
+    """Column positions per CTA of the tensor-core lab kernels at
+    ``tile_k``: the widest ``wgmma`` (128, 64 or 32 columns) that divides it
+    (``width_of``, ``csrc/lab_mma.cuh``)."""
+    return 128 if tile_k % 128 == 0 else 64 if tile_k % 64 == 0 else 32
+
+
+def pack_lab_table_i8(compat: torch.Tensor) -> torch.Tensor:
+    """``[4L, k_padded]`` 0/1 int8 (class-major rows ``c*L + l``; ``k_padded``
+    a multiple of 8) -> the tensor-core lab kernels' table, int8
+    ``[k_padded/8, KP/16, 8, 16]``, contiguous.
+
+    It is the ``[k_padded, KP]`` table (column k's ``4L`` entries in a row,
+    zero-padded to :func:`mma_depth`) in groups of 8 columns, each ``KP/16``
+    core matrices of 8 columns x 16 depth bytes: entry ``j`` of column ``k``
+    is ``table[k // 8, j // 16, k % 8, j % 16]``.  Any run of N consecutive
+    columns (N a multiple of 8) is then one contiguous block in the order
+    ``wgmma`` reads a K-major B tile without swizzle, so a kernel step is one
+    bulk copy whatever the slice width (plain torch ops on ``compat``'s
+    device, once per variant)."""
+    wl, k_padded = compat.shape
+    if k_padded % 8:
+        raise ValueError(f"k_padded={k_padded} is not a multiple of 8")
+    kp = mma_depth(wl // 4)
+    flat = torch.zeros((k_padded, kp), dtype=torch.int8, device=compat.device)
+    flat[:, :wl] = compat.T
+    return flat.view(k_padded // 8, 8, kp // 16, 16).permute(0, 2, 1, 3).contiguous()
+
+
+def lab_table_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
+    """``[wl, k1 - k0]`` float32 0/1: columns ``k0 .. k1 - 1`` of the
+    class-major mismatch table that ``table`` (:func:`pack_lab_table_i8`)
+    holds."""
+    g0, g1 = k0 // 8, -(-k1 // 8)
+    flat = table[g0:g1].permute(0, 2, 1, 3).reshape((g1 - g0) * 8, -1)
+    return flat[k0 - g0 * 8:k1 - g0 * 8, :wl].T.to(torch.float32)
+
+
+#: per table format: its columns reader and the columns a row of its first
+#: axis holds
+_COLUMNS = {"bits": (_bit_columns, 1), "i8": (_i8_columns, 1), "tiled": (lab_table_columns, 8)}
 
 
 @dataclass(frozen=True)
@@ -213,18 +288,20 @@ def lab_params(
 
 def _tile_counts(onehot: torch.Tensor, bits: torch.Tensor, p: LabParams, kb: int) -> torch.Tensor:
     """``[rows, tile_k]`` int32 mismatch counts of K tile ``kb`` (pad
-    columns count L)."""
+    columns count L), from the table format ``p.kernel`` reads."""
     tk = p.tile_k
-    cols = _unpack_bits(bits[kb * tk:(kb + 1) * tk], 4 * p.length)
+    columns, _ = _COLUMNS[TABLE_FORMAT[p.kernel]]
+    cols = columns(bits, kb * tk, (kb + 1) * tk, 4 * p.length)
     return torch.matmul(onehot, cols).to(torch.int32)
 
 
 def _by_rows(body: Callable, obs: torch.Tensor, bits: torch.Tensor, p: LabParams):
     """``body(onehot_rows, bits, p)`` over row chunks that keep one
     ``[rows, tile_k]`` block under the plain versions' element budget;
-    results concatenated."""
-    if bits.shape[0] != p.k_padded:
-        raise ValueError(f"bits has {bits.shape[0]} columns, the lab table {p.k_padded}")
+    results concatenated.  ``bits`` is the table ``p.kernel`` reads."""
+    columns = bits.shape[0] * _COLUMNS[TABLE_FORMAT[p.kernel]][1]
+    if columns != p.k_padded:
+        raise ValueError(f"the table has {columns} columns, the lab table {p.k_padded}")
     onehot = _onehot_f32(obs, p.length)
     step = max(1, _PLAIN_CHUNK_ELEMS // p.tile_k)
     parts = [body(onehot[r0:r0 + step], bits, p) for r0 in range(0, max(1, obs.shape[0]), step)]
@@ -253,11 +330,9 @@ def _emit_top2(ext1: torch.Tensor, m2c: torch.Tensor, p: LabParams) -> Top2:
 
 
 def _mma_rows(onehot, table, p: LabParams) -> torch.Tensor:
-    wl, tk = 4 * p.length, p.tile_k
     acc = torch.zeros(onehot.shape[0], dtype=torch.int32, device=onehot.device)
     for kb in range(p.n_k_tiles):
-        cols = table[kb * tk:(kb + 1) * tk, :wl].to(torch.float32)
-        acc = torch.matmul(onehot, cols.T).to(torch.int32)[:, 0]
+        acc = _tile_counts(onehot, table, p, kb)[:, 0]
     return acc.contiguous()
 
 
@@ -295,10 +370,11 @@ def _probe_rows(onehot, bits, p: LabParams) -> torch.Tensor:
     return ext1.min(dim=1).values >> 8
 
 
-def lab_probe_reference(obs_bit2: torch.Tensor, bits: torch.Tensor, p: LabParams) -> torch.Tensor:
-    """Plain version of ``lab_probe`` (the body at ``kernel_lab.py:172-214``):
-    ``[B]`` int32, column 0 of the probe's emit."""
-    return _by_rows(_probe_rows, obs_bit2, bits, p)
+def lab_probe_reference(obs_bit2: torch.Tensor, table: torch.Tensor, p: LabParams) -> torch.Tensor:
+    """Plain version of ``lab_probe`` (the body at ``kernel_lab.py:172-214``)
+    on the tiled int8 table (:func:`pack_lab_table_i8`): ``[B]`` int32,
+    column 0 of the probe's emit."""
+    return _by_rows(_probe_rows, obs_bit2, table, p)
 
 
 def _clamp16_rows(onehot, bits, p: LabParams) -> Top2:
@@ -372,11 +448,12 @@ def _clamp8_rows(onehot, bits, p: LabParams) -> Top2:
     return _emit_top2(ext1, m2.to(torch.int32).min(dim=1).values, p)
 
 
-def clamp8_top2_reference(obs_bit2: torch.Tensor, bits: torch.Tensor, p: LabParams) -> Top2:
+def clamp8_top2_reference(obs_bit2: torch.Tensor, table: torch.Tensor, p: LabParams) -> Top2:
     """Plain version of ``clamp8_top2`` (``v3_clamp8`` / ``v3w_clamp8``,
-    ``kernel_lab.py:453-508``): ``(best, idx, next)`` with counts clamped
+    ``kernel_lab.py:453-508``) on the tiled int8 table
+    (:func:`pack_lab_table_i8`): ``(best, idx, next)`` with counts clamped
     at W."""
-    return _by_rows(_clamp8_rows, obs_bit2, bits, p)
+    return _by_rows(_clamp8_rows, obs_bit2, table, p)
 
 
 # --------------------------------------------------------------------------
@@ -387,6 +464,10 @@ def clamp8_top2_reference(obs_bit2: torch.Tensor, bits: torch.Tensor, p: LabPara
 class LabKernel:
     """Wrapper of one ``csrc/<name>.cu`` lab kernel.
 
+    ``table_format`` (:data:`TABLE_FORMAT` of ``name``) is the form of the
+    lab's table the kernel and its plain version read.  A call checks the table whatever the device, then runs the plain version
+    for a CPU tensor and launches the kernel for a CUDA tensor.
+
     ``launches`` counts kernel launches (one per pass-1 + pass-2 pair) and
     ``plain_calls`` runs of the plain version; each is incremented only
     where that work is issued."""
@@ -395,49 +476,78 @@ class LabKernel:
         self.name = name
         self.reference = reference
         self.exact = exact
+        self.table_format = TABLE_FORMAT[name]
         self.launches = 0
         self.plain_calls = 0
 
+    def table_spec(self, p: LabParams) -> Tuple[torch.dtype, Tuple[int, ...]]:
+        """``(dtype, shape)`` of the table this kernel reads for ``p``."""
+        kp = mma_depth(p.length)
+        if self.table_format == "bits":
+            return torch.uint32, (p.k_padded, kp // 32)
+        if self.table_format == "i8":
+            return torch.int8, (p.k_padded, kp)
+        return torch.int8, (p.k_padded // 8, kp // 16, 8, 16)
+
+    def check_table(self, table: torch.Tensor, obs: torch.Tensor, p: LabParams) -> None:
+        """``ValueError`` unless ``table`` is this kernel's table for ``p``:
+        dtype, shape, contiguity, 16-byte alignment and ``obs``'s device."""
+        dtype, shape = self.table_spec(p)
+        if table.dtype != dtype or tuple(table.shape) != shape:
+            raise ValueError(
+                f"{self.name} reads the {self.table_format} table, {dtype} "
+                f"{list(shape)}; got {table.dtype} {list(table.shape)}"
+            )
+        if table.device != obs.device:
+            raise ValueError(f"table on {table.device}, obs on {obs.device}")
+        if not table.is_contiguous() or table.data_ptr() % 16:
+            raise ValueError("table must be contiguous and 16-byte aligned")
+
+    def n_slices(self, p: LabParams) -> int:
+        """Column slices of a K tile, one CTA column each: the partials a
+        row writes."""
+        width = lab_width(p.tile_k) if self.table_format == "tiled" else SLICE
+        return p.tile_k // width
+
     def __call__(
-        self, obs_bit2: torch.Tensor, bits: torch.Tensor, p: LabParams
+        self, obs_bit2: torch.Tensor, table: torch.Tensor, p: LabParams
     ) -> Union[torch.Tensor, Top2]:
         if p.kernel != self.name:
             raise ValueError(f"{p.name} runs on {p.kernel}, not {self.name}")
+        self.check_table(table, obs_bit2, p)
         if obs_bit2.device.type == "cpu":
             self.plain_calls += 1
-            return self.reference(obs_bit2, bits, p)
+            return self.reference(obs_bit2, table, p)
         if obs_bit2.device.type != "cuda":
             raise ValueError(f"unsupported device {obs_bit2.device}")
-        return self._launch(obs_bit2, bits, p)
+        return self._launch(obs_bit2, table, p)
 
-    def _launch(self, obs, bits, p: LabParams):
+    def _result(self, out: torch.Tensor):
+        return (out[0], out[1], out[2]) if self.exact else out[0]
+
+    def _launch(self, obs, table, p: LabParams):
         b, width = _check_obs(obs, p.length)
-        nw = (4 * p.length + 31) // 32
         if p.length > MAX_LAB_LENGTH:
             raise ValueError(f"the lab kernels take L <= {MAX_LAB_LENGTH}, got {p.length}")
         if p.kernel == "group_top2" and p.mode not in GROUP_SIZES:
             raise ValueError(f"group_top2 is built for P in {GROUP_SIZES}, got {p.mode}")
-        if bits.dtype != torch.uint32 or tuple(bits.shape) != (p.k_padded, nw):
-            raise ValueError(
-                f"bits must be [{p.k_padded}, {nw}] uint32, got {bits.dtype} "
-                f"{tuple(bits.shape)}"
-            )
-        if bits.device != obs.device:
-            raise ValueError(f"bits on {bits.device}, obs on {obs.device}")
-        if not bits.is_contiguous() or bits.data_ptr() % 16:
-            raise ValueError("bits must be contiguous and 16-byte aligned")
-        n_slices = p.tile_k // SLICE
+        kp = mma_depth(p.length)
+        depth = kp // 32 if self.table_format == "bits" else kp
         fields = 3 if self.exact else 1
         out = torch.empty((fields, b), dtype=torch.int32, device=obs.device)
         if b == 0:
-            return (out[0], out[1], out[2]) if self.exact else out[0]
-        partial = torch.empty((fields, n_slices, b), dtype=torch.int32, device=obs.device)
+            return self._result(out)
+        n_slices = self.n_slices(p)
+        # mma_probe keeps no per-slice state: it writes its output itself
+        scratch = () if n_slices == 0 else (
+            torch.empty((fields, n_slices, b), dtype=torch.int32, device=obs.device),)
         launch = load_kernel(self.name)
         with torch.cuda.device(obs.device):
             stream = torch.cuda.current_stream(obs.device).cuda_stream
             rc = launch(
-                obs.data_ptr(), b, width, bits.data_ptr(), nw, p.length,
-                p.tile_k, p.n_k_tiles, *p.scalars, partial.data_ptr(),
+                obs.data_ptr(), b, width, table.data_ptr(), depth, p.length,
+                p.tile_k, p.n_k_tiles, *p.scalars,
+                *(t.data_ptr() for t in scratch),
                 *(o.data_ptr() for o in out), stream,
             )
         if rc != 0:
@@ -446,52 +556,23 @@ class LabKernel:
                 f"k_padded={p.k_padded}, L={p.length}, tile_k={p.tile_k})"
             )
         self.launches += 1
-        return (out[0], out[1], out[2]) if self.exact else out[0]
+        return self._result(out)
 
 
 class MmaProbe(LabKernel):
     """Wrapper of ``csrc/mma_probe.cu`` (``v4_int4``): reads the int8
-    ``[k_padded, KP]`` table, one launch per call."""
+    ``[k_padded, KP]`` table, one launch per call, no partials."""
 
     def __init__(self) -> None:
         super().__init__("mma_probe", mma_probe_reference, exact=False)
 
-    def _launch(self, obs, table, p: LabParams):
-        b, width = _check_obs(obs, p.length)
-        if p.length > MAX_LAB_LENGTH:
-            raise ValueError(f"the lab kernels take L <= {MAX_LAB_LENGTH}, got {p.length}")
-        kp = mma_depth(p.length)
-        if table.dtype != torch.int8 or tuple(table.shape) != (p.k_padded, kp):
-            raise ValueError(
-                f"table must be [{p.k_padded}, {kp}] int8, got {table.dtype} "
-                f"{tuple(table.shape)}"
-            )
-        if table.device != obs.device:
-            raise ValueError(f"table on {table.device}, obs on {obs.device}")
-        if not table.is_contiguous() or table.data_ptr() % 16:
-            raise ValueError("table must be contiguous and 16-byte aligned")
-        out = torch.empty(b, dtype=torch.int32, device=obs.device)
-        if b == 0:
-            return out
-        launch = load_kernel(self.name)
-        with torch.cuda.device(obs.device):
-            stream = torch.cuda.current_stream(obs.device).cuda_stream
-            rc = launch(
-                obs.data_ptr(), b, width, table.data_ptr(), kp, p.length,
-                p.tile_k, p.n_k_tiles, *p.scalars, out.data_ptr(), stream,
-            )
-        if rc != 0:
-            raise RuntimeError(
-                f"{self.name} launch failed: code {rc} ({p.name}, B={b}, "
-                f"k_padded={p.k_padded}, L={p.length}, tile_k={p.tile_k})"
-            )
-        self.launches += 1
-        return out
+    def n_slices(self, p: LabParams) -> int:
+        return 0
 
 
 def mma_depth(length: int) -> int:
-    """``KP``: the int8 table's row width, 4L zero-padded to a multiple of
-    32 (the depth of one ``mma.sync.m16n8k32``)."""
+    """``KP``: the int8 tables' row width, 4L zero-padded to a multiple of
+    32 (the depth of one ``mma.sync.m16n8k32`` or ``wgmma`` k-step)."""
     return 32 * -(-4 * length // 32)
 
 

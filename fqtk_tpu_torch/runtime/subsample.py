@@ -176,6 +176,16 @@ def _run_subsample_native(cfg: SubsampleConfig, rng, seed: int) -> SubsampleResu
                 return native_rng.keep_mask(take, cfg.fraction)
             return (rng.random_f64_batch(take) < cfg.fraction).astype("uint8")
 
+        def put(item) -> None:
+            # a put that gives up once the consumer has left: the queue may
+            # be full for good by then
+            while not stop.is_set():
+                try:
+                    masks.put(item, timeout=0.2)
+                    return
+                except queue.Full:
+                    continue
+
         def produce():
             # take sizes never straddle a progress boundary so the 5M lines
             # carry the exact counts the reference would log; the schedule
@@ -188,15 +198,10 @@ def _run_subsample_native(cfg: SubsampleConfig, rng, seed: int) -> SubsampleResu
                     take = min(chunk, until_log)
                     mask = draw_mask(take)
                     drawn += take
-                    while not stop.is_set():
-                        try:
-                            masks.put((take, mask), timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
-            except Exception as e:  # pragma: no cover - numpy OOM etc.
+                    put((take, mask))
+            except Exception as e:  # numpy OOM etc.
                 producer_err.append(e)
-                masks.put((0, None))
+                put((0, None))
 
         producer = threading.Thread(target=produce, daemon=True)
         producer.start()

@@ -112,6 +112,119 @@ def test_variant_matches_jax_lab(script, interpret, name, shape):
         assert lk.counts()[go.params.kernel] == (0, 1)
 
 
+#: other ``wgmma`` widths and table depths of the tensor-core lab kernels:
+#: tile_k 64 (N = 64) at KP 128, tile_k 96 (N = 32) at KP 32
+TILED_SHAPES = [(1000, 31, 32, 64), (500, 7, 32, 96)]
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "K%d_L%d_tb%d_tk%d" % s)
+@pytest.mark.parametrize("name", lk.TILED_VARIANTS)
+def test_tiled_variant_matches_jax_lab(script, interpret, name, shape):
+    """``lab_probe`` and ``clamp8_top2`` through the tiled int8 table at the
+    slice widths 64 and 32: equal to the JAX lab, tolerance 0."""
+    k, length, tile_b, tile_k = shape
+    codes = lab.unique_barcodes(k, length)
+    obs = reads(codes, B, seed=k + length)
+    want, want_macs = run_jax(script, name, codes, obs, tile_b, tile_k)
+    got, macs, go = run_port(name, codes, obs, tile_b, tile_k)
+    assert macs == want_macs and go.kernel.table_format == "tiled"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["v3_clamp8", "v3w_clamp8"])
+def test_clamp8_ties_match_jax_lab(script, interpret, name):
+    """The same clamped count at one position of three K tiles (the first
+    tile wins) and a read that clamps to W everywhere (tile id 0 stays)."""
+    codes, rows = lab.clamp8_tie_case(tile_k=32)
+    obs = np.concatenate([rows, reads(codes, 30, seed=4)])
+    want, _ = run_jax(script, name, codes, obs, 32, 32)
+    got, _, go = run_port(name, codes, obs, 32, 32)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    idx, best, nxt = got
+    assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
+    assert (best[1], idx[1], nxt[1]) == (go.params.w_clamp, 0, go.params.w_clamp)
+
+
+@pytest.mark.parametrize("tile_k", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("k,length", [(1000, 7), (1000, 16), (700, 31)])
+def test_tiled_table_reads_back(k, length, tile_k):
+    """The tiled int8 table: the columns reader gives back
+    ``compat_classmajor4(...).T`` (pad columns all ones), and the N columns
+    of (K tile, slice) are one contiguous block in ``wgmma``'s K-major
+    core-matrix order, at every slice width N."""
+    codes = lab.unique_barcodes(k, length)
+    masks = lab.masks_of(codes)
+    k_padded = -(-k // tile_k) * tile_k
+    assert k_padded != k
+    compat = lab.compat_classmajor4(masks, k_padded)
+    table = lab.lab_table_tiled(masks, tile_k, "cpu")
+    wl, kp = 4 * length, lk.mma_depth(length)
+    assert table.dtype == torch.int8 and table.is_contiguous()
+    assert tuple(table.shape) == (k_padded // 8, kp // 16, 8, 16)
+    np.testing.assert_array_equal(
+        lk.lab_table_columns(table, 0, k_padded, wl).numpy(), compat.astype(np.float32))
+    assert (lk.lab_table_columns(table, k, k_padded, wl) == 1).all()
+    np.testing.assert_array_equal(
+        lk.lab_table_columns(table, 13, 77, wl).numpy(), compat[:, 13:77].astype(np.float32))
+    n = lk.lab_width(tile_k)
+    assert n == {32: 32, 64: 64, 96: 32, 128: 128, 256: 128}[tile_k]
+    flat = table.flatten().numpy()
+    full = np.zeros((k_padded, kp), np.int8)
+    full[:, :wl] = compat.T
+    for kb, sl in [(0, 0), (k_padded // tile_k - 1, tile_k // n - 1)]:
+        c0 = kb * tile_k + sl * n
+        block = flat[c0 * kp:(c0 + n) * kp].reshape(n // 8, kp // 16, 8, 16)
+        # core matrix (group, depth chunk): 8 columns x 16 depth bytes
+        want = full[c0:c0 + n].reshape(n // 8, 8, kp // 16, 16).transpose(0, 2, 1, 3)
+        np.testing.assert_array_equal(block, want)
+
+
+def test_tiled_wrappers_reject_other_tables():
+    """``lab_probe`` and ``clamp8_top2`` take the tiled int8 table only: the
+    bit table, another dtype, another depth and a misaligned view raise."""
+    codes = lab.unique_barcodes(500, 16)
+    masks = lab.masks_of(codes)
+    obs = torch.from_numpy(lab.pack_bit2(codes[:32]))
+    for name in ("v1_m1only", "v3_clamp8"):
+        p = lk.lab_params(name, 500, 16, 128)
+        kern = lk.make_lab_kernels()[p.kernel]
+        table = lab.table_for(p.kernel, masks, 128, "cpu")
+        assert kern.table_spec(p) == (torch.int8, (64, 4, 8, 16))
+        with pytest.raises(ValueError, match="tiled table"):
+            kern(obs, lab.lab_table(masks, 128, "cpu"), p)
+        with pytest.raises(ValueError, match="tiled table"):
+            kern(obs, lab.lab_table_i8(masks, 128, "cpu"), p)
+        with pytest.raises(ValueError, match="tiled table"):
+            kern(obs, table.to(torch.int16), p)
+        with pytest.raises(ValueError, match="tiled table"):
+            kern(obs, lab.table_for(p.kernel, lab.masks_of(codes[:, :7]), 128, "cpu"), p)
+        shifted = torch.empty(table.numel() + 1, dtype=torch.int8)[1:]
+        shifted.copy_(table.flatten())
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kern(obs, shifted.view(table.shape), p)
+        strided = torch.zeros((64, 4, 16, 8), dtype=torch.int8).transpose(2, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            kern(obs, strided, p)
+        assert (kern.launches, kern.plain_calls) == (0, 0)
+        assert kern(obs, table, p) is not None and kern.plain_calls == 1
+    # the POPC kernels keep the bit table
+    p = lk.lab_params("v5_clamp16", 500, 16, 128)
+    with pytest.raises(ValueError, match="bits table"):
+        lk.make_lab_kernels()["clamp16_top2"](obs, lab.lab_table_tiled(masks, 128, "cpu"), p)
+
+
+def test_stream_bytes_cover_the_tiled_variants():
+    """Every variant of a kernel that reads the tiled table, and no other,
+    states its stream bytes."""
+    tiled = {n for n in (*PORTED, "v4_int4") if n != "v0_colmerge"
+             and lk.TABLE_FORMAT[lk.lab_params(n, 1024, 16, 128).kernel] == "tiled"}
+    assert set(lk.STREAM_BYTES) == set(lk.TILED_VARIANTS) == tiled
+    assert set(lk.TABLE_FORMAT) == set(lk.LAB_KERNELS)
+    assert all(kern.table_format == lk.TABLE_FORMAT[name] for name, kern in lk.LAB_KERNELS.items())
+
+
 def test_tables_match_script(script):
     for k, length in [(1000, 16), (1000, 7), (1024, 16)]:
         codes = lab.unique_barcodes(k, length)

@@ -284,6 +284,15 @@ LAB_CASES = [
     ("v1_m1only", 3000, 31, 96),
 ]
 
+#: each variant of the two kernels that count on the tensor cores
+#: (``lab_probe``, ``clamp8_top2``) at every ``wgmma`` width (N = 32, 64, 128 at tile_k 96, 64,
+#: 128 / 256) and table depth (KP = 32, 64, 96, 128 at L 7, 16, 24, 31)
+LAB_CASES += [
+    (name, 3000, length, tile_k)
+    for name in lk.TILED_VARIANTS
+    for length, tile_k in [(7, 96), (16, 64), (24, 128), (31, 256), (16, 96), (31, 64)]
+]
+
 
 def lab_case(name, k, length, tile_k, b, seed):
     from fqtk_tpu_torch.lab import kernel_lab as lab
@@ -315,6 +324,90 @@ def test_lab_kernel_matches_plain_on_card(name, k, length, tile_k):
             assert g.dtype == torch.int32 and g.shape == (rows,)
             assert torch.equal(g, w)
     assert (kern.launches, kern.plain_calls) == (2, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", lk.TILED_VARIANTS)
+def test_tiled_lab_kernel_one_row_on_card(name):
+    """B = 1: one row of a 128-row CTA is real, the others neither write
+    partials nor reach the fold."""
+    _need_card()
+    params, table, obs = lab_case(name, 3000, 16, 128, b=1, seed=5)
+    kern = lk.make_lab_kernels()[params.kernel]
+    got = kern(obs, table, params)
+    want = kern.reference(obs, table, params)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == (1,) and torch.equal(g, w)
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+
+
+@pytest.mark.gpu
+def test_clamp8_255_k_tiles_on_card():
+    """The most K tiles the uint8 tile ids hold: 255 steps per CTA."""
+    _need_card()
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    k = 255 * 32 - 5
+    params, table, obs = lab_case("v3_clamp8", k, 16, 32, b=300, seed=8)
+    assert params.n_k_tiles == 255
+    last = lab.unique_barcodes(k, 16)[k - 1:]  # a read whose best is in tile 254
+    obs[0] = torch.from_numpy(lab.pack_bit2(last))[0]
+    kern = lk.make_lab_kernels()["clamp8_top2"]
+    got = kern(obs, table, params)
+    want = kern.reference(obs, table, params)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (int(got[0][0]), int(got[1][0])) == (0, k - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v3_clamp8", "v3w_clamp8"])
+def test_clamp8_ties_on_card(name):
+    _need_card()
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    tile_k = 32
+    codes, rows = lab.clamp8_tie_case(tile_k)
+    params = lk.lab_params(name, len(codes), 16, tile_k)
+    table = lab.table_for(params.kernel, lab.masks_of(codes), tile_k, "cuda")
+    obs = torch.from_numpy(lab.pack_bit2(rows)).cuda()
+    kern = lk.make_lab_kernels()["clamp8_top2"]
+    best, idx, nxt = (x.cpu().tolist() for x in kern(obs, table, params))
+    want = kern.reference(obs, table, params)
+    assert [best, idx, nxt] == [x.cpu().tolist() for x in want]
+    # the tie: count 0 at position 5 of tiles 0, 1, 2 -> tile 0; next 0
+    assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
+    # every count clamps to W: tile id 0, position 0
+    assert (best[1], idx[1], nxt[1]) == (params.w_clamp, 0, params.w_clamp)
+
+
+@pytest.mark.gpu
+def test_tiled_lab_kernels_reject_other_tables_on_card():
+    """A CUDA tensor launches the kernel or raises: the bit table, a table
+    of another depth and a misaligned view are refused, none runs the plain
+    version."""
+    _need_card()
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    params, table, obs = lab_case("v3_clamp8", 512, 16, 128, b=64, seed=3)
+    kern = lk.make_lab_kernels()["clamp8_top2"]
+    codes = lab.unique_barcodes(512, 16)
+    bits = lab.lab_table(lab.masks_of(codes), 128, "cuda")
+    with pytest.raises(ValueError, match="tiled table"):
+        kern(obs, bits, params)
+    with pytest.raises(ValueError, match="tiled table"):
+        kern(obs, table.to(torch.uint8), params)
+    shifted = torch.empty(table.numel() + 1, dtype=torch.int8, device="cuda")[1:]
+    shifted.copy_(table.flatten())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kern(obs, shifted.view(table.shape), params)
+    with pytest.raises(ValueError, match="obs on"):
+        kern(obs, table.cpu(), params)
+    assert (kern.launches, kern.plain_calls) == (0, 0)
 
 
 @pytest.mark.gpu
