@@ -16,7 +16,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              times of all four, each kernel's bound (the larger of its int8
              operations over the card's peak and its bytes over the memory
              rate) and, as information, ``torch._int_mm`` for the counts
-             alone; each kernel on a state built for it.
+             alone; each kernel on a state built for it.  Then one call of
+             the route of barcodes longer than 255 bp (``make_assign_fn``,
+             plain PyTorch on the card, no kernel) at K = 96, L = 300,
+             B = 8,192, equal to the NumPy spec ``assign_batch_np``.
 4. demux   — a 2,000,000-read dual-index paired-end run with 96 samples
              through ``python -m fqtk_tpu_torch.cli demux --matcher device
              --device cuda``; ``colmerge_top2`` must have been launched, and
@@ -46,9 +49,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              gave it — B = 131,072 and 65,536 on the rate slope's own rows —
              and at a ragged B = 15,872 of the spot check's reads, with
              kernel and plain times at B = 16,384 and, for the variants of
-             the tensor-core lab kernels (``lab_probe``, ``clamp8_top2``),
-             the design's stream bytes per (row, column) pair and the
+             the tensor-core lab kernels (all but ``mma_probe``), the
+             design's stream bytes per (row, column) pair and the
              shared-memory stream bound beside the int8 bound.
+
+The build fails the run if a kernel on the tensor-core engine
+(``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
 
 After the last phase the script fails if ``jax`` or any module of the JAX
 package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
@@ -105,6 +111,8 @@ KERNEL_SHAPES = [
     (737_280, 16, 16_384),
 ]
 MAIN_PATH_SHAPE = (96, 17, 8192)
+#: (K, L, B) of the long-barcode route's call
+LONG_SHAPE = (96, 300, 8192)
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -327,6 +335,30 @@ def phase_kernels(card: str) -> dict:
         del obs
         torch.cuda.empty_cache()
     return dict(shapes=shapes, max_abs_err=max_err)
+
+
+def long_barcode_route(card: str) -> float:
+    """One call of the matcher of barcodes longer than 255 bp
+    (``make_assign_fn``: a float32 ``torch.matmul`` per K chunk, no kernel)
+    on the card, equal to the NumPy spec; returns its median ms."""
+    from fqtk_tpu_torch.ops.matcher import assign_batch_np, make_assign_fn
+
+    k, length, b = LONG_SHAPE
+    es, packed = kernel_case(k, length, b, seed=1300)
+    codes = (packed[:, np.arange(length) // 4] >> (2 * (np.arange(length) % 4))) & 3
+    fn = make_assign_fn(es, 1, 2, packed2=True, compact_output=True, device="cuda")
+    obs = torch.from_numpy(packed).cuda()
+    got = [x.cpu().numpy().astype(np.int64) for x in fn(obs)]
+    idx, best, nxt = assign_batch_np(ACGT[codes], es, 1, 2)
+    for field, g, w in zip(("assigned", "best", "next"), got, (np.where(idx < 0, k, idx), best, nxt)):
+        if not np.array_equal(g, w):
+            bad = int(np.nonzero(g != w)[0][0])
+            raise AssertionError(f"long-barcode route {field}[{bad}]: {g[bad]}, spec {w[bad]}")
+    ms = cuda_median_ms(lambda: fn(obs), 5)
+    log(f"[kernels] K={k} L={length} B={b}: the long-barcode route ({fn.scheme}, float32 "
+        f"torch.matmul per K chunk, no kernel) {ms:.4f} ms (median of 5; {card}), "
+        f"equal to assign_batch_np; {int((got[0] < k).sum())} rows assigned")
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -705,7 +737,7 @@ LAB_K, LAB_L = 737_280, 16  # the lab's defaults (FQTK_LAB_K, FQTK_LAB_L)
 LAB_B = 16_384
 LAB_KERNEL_NAMES = ("mma_probe", "lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
 #: the lab kernels on the tensor-core engine: no spill, no serialized wgmma
-ENGINE_LAB_KERNELS = ("lab_probe", "clamp8_top2")
+ENGINE_LAB_KERNELS = ("lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
 
 
 def phase_lab(card: str) -> dict:
@@ -835,6 +867,7 @@ def main() -> int:
     # phase 3: kernels against plain
     t0 = time.perf_counter()
     kr = phase_kernels(card)
+    long_ms = long_barcode_route(card)
     log(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # phase 4: the 96-sample slice end to end (a fresh CLI process: its counts
@@ -862,7 +895,8 @@ def main() -> int:
 
     log("[end to end] " + json.dumps({
         "demux_reads_per_s": dr["reads_per_s"], "demux_cli_wall_s": dr["wall_s"],
-        "single_cell_window_call_ms": sc["call_ms"], "card": card}))
+        "single_cell_window_call_ms": sc["call_ms"], "long_barcode_route_ms": long_ms,
+        "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,123 +14,135 @@
 // the plain version).  Clamping never changes a gate decision or the
 // winning index (docs/DESIGN.md).
 //
-// Design and bounds: see lab_common.cuh.  The two int16 streams take
-// 2 x 32 x 256 x 2 = 32 KB of shared memory per CTA; each step is two
-// shared loads and two stores of 16 bits per (row, column) pair, beside the
-// NW broadcast loads and NW AND + POPC of the count.  A model from
-// instruction counts, not read from profiler counters: at L = 16 that is
-// five shared-memory warp accesses per 32 pairs against two POPC per pair,
-// so the shared pipe and the POPC pipe (8 pairs/clk/SM) bind about equally.
-// Packing two positions' keys per 32-bit word (__vminu2 / __vmaxu2) would
-// halve the shared accesses: later work.
+// Design (csrc/lab_mma.cuh has the walk, the table and the streams' layout).
+// Counts come from the tensor-core engine of csrc/mma_count.cuh: CTA = 128
+// rows x N = 128 column positions, one wgmma group per K tile.  The two
+// int16 streams take 2 x 32 KB of shared memory beside a ring of three steps
+// of two 8 KB K tiles (L 16): 112 KB, two CTAs (four warpgroups) per SM.
+// Every step reads and writes both streams, 8 positions per 128-bit access.
+//
+// The update runs in 16x2 lanes.  A thread's counts of one row come in
+// pairs of positions (8j + 2t, 8j + 2t + 1), acc[4j + 2rr] and acc[4j + 2rr
+// + 1]: one 32-bit word of each stream holds that pair (lab_mma.cuh
+// HalfAt).  Per word: 1 PRMT packs the two counts into lanes, a DPX min
+// clamps them at W (before the scale: count * nt_pow2 may pass 16 bits, the
+// clamped key never does, W * nt_pow2 + nt_pow2 - 1 < 2^15), 1 IMAD gives
+// key = c * nt_pow2 + kb in both lanes (no carry between them), and three
+// DPX min / max update m1 and m2: 6 integer instructions per 2 positions.
+//
+// What bounds it on this card: the operations bound is that of the product
+// (2 * B * k_padded * KP int8 at 1,979 TOP/s); the streams are 8 B per pair
+// through shared memory (128 B per clock and SM) beside wgmma's own B reads,
+// the same as lab_probe's v1_m1only, and they bind before the integer lanes
+// (3 instructions per pair on 64 lanes per clock and SM).
 //
 // Launch contract: launches on the caller's stream, allocates nothing,
 // returns cudaGetLastError() (negative on a rejected argument).
 
 #include "lab_common.cuh"
+#include "lab_mma.cuh"
 
 namespace {
 
-using namespace lab;
+using namespace labm;
 
-template <int NW>
-__global__ void __launch_bounds__(kThreads)
-clamp16_pass1(const uint8_t* __restrict__ obs, int64_t b, int width,
-              const uint32_t* __restrict__ bits, int length, int tile_k,
-              int n_k_tiles, int w_clamp, int nt_pow2,
-              int32_t* __restrict__ partial, int64_t n_row_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(16) uint32_t stage[kChunkTiles * kSlice * NW];
-  volatile int16_t* m1 = reinterpret_cast<volatile int16_t*>(smem);
-  volatile int16_t* m2 = m1 + kSlice * kThreads;
+struct Clamp16 : TwoTileSteps {
+  static constexpr int kStreamBytes = 4;  // m1, m2 int16
+  static constexpr int kMaxWidth = 128;
+  struct Params {
+    int w_clamp, nt_pow2;
+  };
 
-  const int t = threadIdx.x;
-  const int64_t row = (blockIdx.x % n_row_tiles) * kThreads + t;
-  const int slice = (int)(blockIdx.x / n_row_tiles);
-  const int s0 = slice * kSlice;
-  const bool valid = row < b;
+  template <int N>
+  struct Visitor {
+    static constexpr int kChunks = N / 16;         // per thread and stream
+    static constexpr int kStream = kRows * N * 2;  // bytes of one stream
+    const uint32_t m1s, m2s;
+    const Params p;
+    const int s0, tile_k, t;
 
-  uint32_t oh[NW];
-  if (valid) load_onehot<NW>(obs, row, width, length, oh);
-  const int16_t kinit = (int16_t)(w_clamp * nt_pow2 + nt_pow2 - 1);
+    __device__ Visitor(uint32_t streams, const Params& p_, int s0_,
+                       int tile_k_, int t_)
+        : m1s(streams), m2s(streams + kStream), p(p_), s0(s0_),
+          tile_k(tile_k_), t(t_) {}
+
+    __device__ __forceinline__ void init() {
+      const uint32_t kinit =
+          (uint32_t)(p.w_clamp * p.nt_pow2 + p.nt_pow2 - 1) * 0x00010001u;
+      fill_stream(m1s, kChunks, kinit);
+      fill_stream(m2s, kChunks, kinit);
+    }
+
+    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int kb) {
+      fence_acc(acc);
+      const uint32_t kb2 = (uint32_t)kb * 0x00010001u;
+      const uint32_t w2 = (uint32_t)p.w_clamp * 0x00010001u;
 #pragma unroll
-  for (int p = 0; p < kSlice; ++p) {
-    m1[p * kThreads + t] = kinit;
-    m2[p * kThreads + t] = kinit;
-  }
-
-  for (int kb0 = 0; kb0 < n_k_tiles; kb0 += kChunkTiles) {
-    const int ct = min(kChunkTiles, n_k_tiles - kb0);
-    __syncthreads();  // the previous chunk has been consumed
-    stage_chunk<NW>(bits, tile_k, s0, kb0, ct, stage);
-    __syncthreads();
-    if (!valid) continue;
-    for (int j = 0; j < ct; ++j) {
-      const int kb = kb0 + j;
-      const uint32_t* cols = stage + j * kSlice * NW;
-#pragma unroll 8
-      for (int p = 0; p < kSlice; ++p) {
-        const int cnt = count_of<NW>(oh, cols + p * NW);
-        const int32_t key = min(cnt, w_clamp) * nt_pow2 + kb;
-        const int i = p * kThreads + t;
-        const int32_t prev = m1[i];
-        m1[i] = (int16_t)min(prev, key);
-        m2[i] = (int16_t)min((int32_t)m2[i], max(prev, key));
+      for (int c = 0; c < kChunks; ++c) {
+        Word4 m1 = lds128(chunk_addr(m1s, c));
+        Word4 m2 = lds128(chunk_addr(m2s, c));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int ia = 4 * HalfAt<N>::j(4 * c + w) + 2 * HalfAt<N>::rr(4 * c + w);
+          const uint32_t key =
+              min16x2(lanes16(acc[ia], acc[ia + 1]), w2) * (uint32_t)p.nt_pow2 + kb2;
+          const uint32_t prev = m1.w[w];
+          m1.w[w] = min16x2(prev, key);
+          m2.w[w] = min16x2(m2.w[w], max16x2(prev, key));
+        }
+        sts128(chunk_addr(m1s, c), m1);
+        sts128(chunk_addr(m2s, c), m2);
       }
     }
-  }
-  if (!valid) return;
-  Top2Keys acc;
-#pragma unroll 8
-  for (int p = 0; p < kSlice; ++p) {
-    acc.add((int32_t)m1[p * kThreads + t] * tile_k + s0 + p);
-    acc.m2c = min(acc.m2c, (int32_t)m2[p * kThreads + t] / nt_pow2);
-  }
-  store_top2(partial, tile_k / kSlice, slice, b, row, acc);
-}
 
-template <int NW>
-int launch_clamp16(const uint8_t* obs, int64_t b, int width,
-                   const uint32_t* bits, int length, int tile_k,
-                   int n_k_tiles, int w_clamp, int nt_pow2, int32_t* partial,
-                   int64_t n_row_tiles, cudaStream_t s) {
-  return launch_pass1(clamp16_pass1<NW>, 2 * sizeof(int16_t) * kSlice * kThreads,
-                      n_row_tiles, tile_k / kSlice, s, obs, b, width, bits,
-                      length, tile_k, n_k_tiles, w_clamp, nt_pow2, partial);
-}
+    // The body's emit over the thread's positions, the quad's fold, and the
+    // rows' partials.
+    __device__ __forceinline__ void emit(const LabArgs& a, int slice,
+                                         int64_t r_lo, int64_t r_hi) {
+      lab::Top2Keys k[2];
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const Word4 m1 = lds128(chunk_addr(m1s, c));
+        const Word4 m2 = lds128(chunk_addr(m2s, c));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int rr = HalfAt<N>::rr(4 * c + w), jj = HalfAt<N>::j(4 * c + w);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int32_t v1 = (int16_t)(m1.w[w] >> (16 * e));
+            const int32_t v2 = (int16_t)(m2.w[w] >> (16 * e));
+            k[rr].add(v1 * tile_k + s0 + 8 * jj + 2 * t + e);
+            k[rr].m2c = min(k[rr].m2c, v2 / p.nt_pow2);
+          }
+        }
+      }
+      lab::emit_top2(k, a.partial, a.tile_k / N, slice, a.b, r_lo, r_hi, t);
+    }
+  };
+};
 
 }  // namespace
 
 extern "C" int fqtk_clamp16_top2(const void* obs, int64_t b, int width,
-                                 const void* bits, int nw, int length,
+                                 const void* table, int kp, int length,
                                  int tile_k, int n_k_tiles, int w_clamp,
                                  int nt_pow2, void* partial, void* best,
                                  void* idx, void* next, void* stream) {
   int64_t n_row_tiles = 0;
-  const int rc = check_args(b, width, bits, nw, length, tile_k, n_k_tiles,
-                            &n_row_tiles);
+  const int rc = check_lab_args(b, width, table, kp, length, tile_k, n_k_tiles,
+                                lab_width<Clamp16>(tile_k), &n_row_tiles);
   if (rc != 0) return rc;
   if (w_clamp < 1 || nt_pow2 < n_k_tiles || (nt_pow2 & (nt_pow2 - 1)) ||
       (int64_t)w_clamp * nt_pow2 + nt_pow2 - 1 >= (1 << 15))
     return -1;
-  const uint8_t* o = static_cast<const uint8_t*>(obs);
-  const uint32_t* w = static_cast<const uint32_t*>(bits);
   int32_t* part = static_cast<int32_t*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = 0;
-#define FQTK_CLAMP16(N)                                                     \
-  e = launch_clamp16<N>(o, b, width, w, length, tile_k, n_k_tiles, w_clamp, \
-                        nt_pow2, part, n_row_tiles, s)
-  switch (nw) {
-    case 1: FQTK_CLAMP16(1); break;
-    case 2: FQTK_CLAMP16(2); break;
-    case 3: FQTK_CLAMP16(3); break;
-    default: FQTK_CLAMP16(4); break;
-  }
-#undef FQTK_CLAMP16
-  if (e != 0) return e;
-  top2_fold<<<(unsigned)n_row_tiles, kThreads, 0, s>>>(
-      part, b, tile_k / kSlice, tile_k, nt_pow2, static_cast<int32_t*>(best),
-      static_cast<int32_t*>(idx), static_cast<int32_t*>(next));
-  return (int)cudaGetLastError();
+  const LabArgs args{static_cast<const uint8_t*>(obs), b, width, length,
+                     static_cast<const uint8_t*>(table), kp, tile_k,
+                     n_k_tiles, n_row_tiles, part};
+  const cudaError_t e =
+      launch_lab<Clamp16>(args, Clamp16::Params{w_clamp, nt_pow2}, s);
+  if (e != cudaSuccess) return (int)e;
+  return lab::launch_top2_fold(part, b, tile_k / lab_width<Clamp16>(tile_k),
+                               tile_k, nt_pow2, best, idx, next, s);
 }

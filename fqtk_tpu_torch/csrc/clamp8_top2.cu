@@ -54,8 +54,9 @@ namespace {
 
 using namespace labm;
 
-struct Clamp8 {
+struct Clamp8 : TwoTileSteps {
   static constexpr int kStreamBytes = 3;  // m1, m2 int8 and t1 uint8
+  static constexpr int kMaxWidth = 128;
   struct Params {
     int w_clamp, nt_pow2;
   };
@@ -80,9 +81,8 @@ struct Clamp8 {
       fill_stream(t1s, kChunks, 0u);
     }
 
-    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int s, int j) {
+    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int kb) {
       fence_acc(acc);
-      const int kb = s * kStageTiles + j;
       const uint32_t kb2 = (uint32_t)kb * 0x00010001u;
       const uint32_t wkb = (uint32_t)p.w_clamp * 0x01000100u + kb2;
 #pragma unroll
@@ -148,23 +148,7 @@ struct Clamp8 {
           }
         }
       }
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          const int32_t o1 = __shfl_xor_sync(0xffffffffu, k[rr].g1, off);
-          const int32_t o2 = __shfl_xor_sync(0xffffffffu, k[rr].g2, off);
-          const int32_t om = __shfl_xor_sync(0xffffffffu, k[rr].m2c, off);
-          k[rr].g2 = min(min(k[rr].g2, o2), max(k[rr].g1, o1));
-          k[rr].g1 = min(k[rr].g1, o1);
-          k[rr].m2c = min(k[rr].m2c, om);
-        }
-      }
-      if (t != 0) return;
-      if (r_lo < a.b)
-        lab::store_top2(a.partial, a.tile_k / N, slice, a.b, r_lo, k[0]);
-      if (r_hi < a.b)
-        lab::store_top2(a.partial, a.tile_k / N, slice, a.b, r_hi, k[1]);
+      lab::emit_top2(k, a.partial, a.tile_k / N, slice, a.b, r_lo, r_hi, t);
     }
   };
 };
@@ -178,7 +162,7 @@ extern "C" int fqtk_clamp8_top2(const void* obs, int64_t b, int width,
                                 void* idx, void* next, void* stream) {
   int64_t n_row_tiles = 0;
   const int rc = check_lab_args(b, width, table, kp, length, tile_k, n_k_tiles,
-                                &n_row_tiles);
+                                lab_width<Clamp8>(tile_k), &n_row_tiles);
   if (rc != 0) return rc;
   if (w_clamp < 1 || w_clamp > 127 || n_k_tiles > 255 ||
       nt_pow2 < n_k_tiles || (nt_pow2 & (nt_pow2 - 1)))
@@ -191,10 +175,6 @@ extern "C" int fqtk_clamp8_top2(const void* obs, int64_t b, int width,
   const cudaError_t e =
       launch_lab<Clamp8>(args, Clamp8::Params{w_clamp, nt_pow2}, s);
   if (e != cudaSuccess) return (int)e;
-  lab::top2_fold<<<(unsigned)((b + lab::kThreads - 1) / lab::kThreads),
-                   lab::kThreads, 0, s>>>(
-      part, b, tile_k / width_of(tile_k), tile_k, nt_pow2,
-      static_cast<int32_t*>(best), static_cast<int32_t*>(idx),
-      static_cast<int32_t*>(next));
-  return (int)cudaGetLastError();
+  return lab::launch_top2_fold(part, b, tile_k / lab_width<Clamp8>(tile_k),
+                               tile_k, nt_pow2, best, idx, next, s);
 }

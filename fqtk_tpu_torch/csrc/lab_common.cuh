@@ -1,34 +1,17 @@
-// Shared pieces of the kernel lab's POPC-counting Hopper kernels (sm_90a):
-// csrc/clamp16_top2.cu (TPU kernel #5) and group_top2.cu (#6), counterparts
-// of Pallas bodies in scripts/kernel_lab.py.  The lab's other kernels count
-// on the tensor cores: csrc/mma_probe.cu (#3) uses only check_args and
-// load_onehot from here, csrc/clamp8_top2.cu (#7) only the emit's key fold
-// (Top2Keys, store_top2, top2_fold), csrc/lab_probe.cu (#4) nothing; their
-// walk is csrc/lab_mma.cuh.
+// Shared pieces of the kernel lab's Hopper kernels (sm_90a), counterparts of
+// Pallas bodies in scripts/kernel_lab.py:
+// * the exact kernels' emit, csrc/clamp16_top2.cu (TPU kernel #5),
+//   group_top2.cu (#6) and clamp8_top2.cu (#7): the running (smallest,
+//   second smallest) emit keys of a row (Top2Keys), the fold of a quad's
+//   keys and the row's partial per slice (emit_top2), and pass 2, which folds
+//   the slices of a row (top2_fold);
+// * csrc/mma_probe.cu (#3): its argument checks and the one-hot bit words of
+//   a row (check_args, load_onehot).
+// The walk of the kernels that count on the tensor cores (#4-#7) is
+// csrc/lab_mma.cuh.
 //
-// The TPU bodies walk the K tiles of the lab's table in order (the grid's
-// second axis) and keep a state per (row, column position p < tile_k) in
-// VMEM scratch across them: one to three accumulator streams of the
-// variant's width.  Here the walk is a loop inside the CTA and the state
-// lives in shared memory at the same widths:
-//   CTA = 256 rows (one per thread) x a slice of kSlice column positions
-//   [s0, s0 + kSlice) of every K tile.  State element (p, row) sits at
-//   p * kThreads + thread, so a warp's access to one p is 32 consecutive
-//   elements (no bank conflicts at any width).  Each thread touches only
-//   its own row's state, through volatile pointers, so every read and write
-//   of the TPU body's streams is issued at every step (nvcc may not keep
-//   the state in registers across steps or drop a store that a later step
-//   overwrites): the traffic of the streams is what the lab measures.
-// Counting is by POPC over the bit-packed table, as in csrc/tile_top2.cu:
-// the thread's one-hot (bit c*L + l set iff the row's code at l is c) lives
-// in registers; the slice's columns of kChunkTiles K tiles are staged into
-// shared memory with 16-byte loads and read as broadcasts.  The table's pad
-// columns (all ones, up to n_k_tiles * tile_k) count L and take part, as on
-// the TPU.
-// Pass 1 ends with the body's emit over the thread's kSlice positions and
-// writes one partial per (row, slice); pass 2 folds the slices of a row.
 // Every key of a row's emit is unique (it ends in the column id), so the
-// fold is associative and equals the TPU emit over all tile_k positions.
+// folds are associative and equal the TPU emit over all tile_k positions.
 
 #pragma once
 
@@ -38,25 +21,21 @@
 namespace {
 namespace lab {
 
-constexpr int kThreads = 256;        // rows per CTA, one per thread
-constexpr int kSlice = 32;           // column positions per CTA
-constexpr int kChunkTiles = 16;      // K tiles staged per pair of barriers
+constexpr int kThreads = 256;        // threads per CTA
 constexpr int32_t kMasked = 1 << 30; // the emit's masked-key sentinel
 constexpr int32_t kKeyMax = 0x7fffffff;
-constexpr int32_t kMaxCount = 255;
 
-// 0, or a negative code for arguments the kernels do not take.
-inline int check_args(int64_t b, int width, const void* bits, int nw,
+// 0, or a negative code for arguments the kernels do not take.  `nw`: the
+// row's one-hot bit words, ceil(4L / 32); tile_k a multiple of 32.
+inline int check_args(int64_t b, int width, const void* table, int nw,
                       int length, int tile_k, int n_k_tiles,
                       int64_t* n_row_tiles) {
   if (b <= 0 || length < 1 || length > 32 || width != (length + 3) / 4 ||
-      nw != (4 * length + 31) / 32 || tile_k < kSlice ||
-      tile_k % kSlice != 0 || n_k_tiles < 1 ||
-      (int64_t)n_k_tiles * tile_k > 0x7fffffffLL)
+      nw != (4 * length + 31) / 32 || tile_k < 32 || tile_k % 32 != 0 ||
+      n_k_tiles < 1 || (int64_t)n_k_tiles * tile_k > 0x7fffffffLL)
     return -1;
-  if ((reinterpret_cast<uintptr_t>(bits) & 15u) != 0) return -2;
+  if ((reinterpret_cast<uintptr_t>(table) & 15u) != 0) return -2;
   *n_row_tiles = (b + kThreads - 1) / kThreads;
-  if (*n_row_tiles * (tile_k / kSlice) > 0x7fffffffLL) return -3;
   return 0;
 }
 
@@ -75,31 +54,6 @@ __device__ __forceinline__ void load_onehot(const uint8_t* __restrict__ obs,
     for (int w = 0; w < NW; ++w)
       oh[w] |= ((bit >> 5) == w) ? (1u << (bit & 31)) : 0u;
   }
-}
-
-// Stage the slice's columns of K tiles kb0 .. kb0 + ct - 1: each tile's
-// kSlice columns are kSlice * NW contiguous words of `bits` ([k_padded, NW]
-// uint32), 16-byte aligned since tile_k and s0 are multiples of kSlice.
-template <int NW>
-__device__ __forceinline__ void stage_chunk(const uint32_t* __restrict__ bits,
-                                            int tile_k, int s0, int kb0,
-                                            int ct, uint32_t* stage) {
-  constexpr int kPerTile = kSlice * NW / 4;  // uint4 per tile
-  for (int q = threadIdx.x; q < ct * kPerTile; q += kThreads) {
-    const int j = q / kPerTile;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        bits + ((int64_t)(kb0 + j) * tile_k + s0) * NW);
-    reinterpret_cast<uint4*>(stage)[q] = __ldg(src + (q - j * kPerTile));
-  }
-}
-
-template <int NW>
-__device__ __forceinline__ int count_of(const uint32_t (&oh)[NW],
-                                        const uint32_t* col) {
-  int c = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) c += __popc(oh[w] & col[w]);
-  return c;
 }
 
 // Running (smallest, second smallest capped at kMasked) of a row's emit
@@ -121,6 +75,31 @@ __device__ __forceinline__ void store_top2(int32_t* __restrict__ partial,
   partial[((int64_t)0 * n_slices + slice) * b + row] = a.g1;
   partial[((int64_t)1 * n_slices + slice) * b + row] = a.g2;
   partial[((int64_t)2 * n_slices + slice) * b + row] = a.m2c;
+}
+
+// The end of pass 1 of an exact kernel on csrc/lab_mma.cuh's walk: the four
+// threads of a quad (t = lane & 3) hold disjoint positions of the same two
+// rows (k[0]: r_lo, k[1]: r_hi); fold their keys and let t == 0 write the
+// rows' partials (rows < b only).
+__device__ __forceinline__ void emit_top2(Top2Keys (&k)[2],
+                                          int32_t* __restrict__ partial,
+                                          int n_slices, int slice, int64_t b,
+                                          int64_t r_lo, int64_t r_hi, int t) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const int32_t o1 = __shfl_xor_sync(0xffffffffu, k[rr].g1, off);
+      const int32_t o2 = __shfl_xor_sync(0xffffffffu, k[rr].g2, off);
+      const int32_t om = __shfl_xor_sync(0xffffffffu, k[rr].m2c, off);
+      k[rr].g2 = min(min(k[rr].g2, o2), max(k[rr].g1, o1));
+      k[rr].g1 = min(k[rr].g1, o1);
+      k[rr].m2c = min(k[rr].m2c, om);
+    }
+  }
+  if (t != 0) return;
+  if (r_lo < b) store_top2(partial, n_slices, slice, b, r_lo, k[0]);
+  if (r_hi < b) store_top2(partial, n_slices, slice, b, r_hi, k[1]);
 }
 
 // Pass 2 of the exact kernels: fold the slices of each row, then the TPU
@@ -148,19 +127,13 @@ top2_fold(const int32_t* __restrict__ partial, int64_t b, int n_slices,
   next[row] = min(acc.g2 / span, acc.m2c);
 }
 
-// Launch pass 1 (`kernel`, `smem` bytes of dynamic shared state) on the
-// flattened grid (row tile fastest), then pass 2 if `fold`.  Returns the
-// first CUDA error.
-template <class Kernel, class... Args>
-int launch_pass1(Kernel kernel, size_t smem, int64_t n_row_tiles,
-                 int n_slices, cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<(unsigned)(n_row_tiles * n_slices), kThreads, smem, stream>>>(
-      args..., n_row_tiles);
+// Launch pass 2 over `b` rows of `n_slices` partials each.
+inline int launch_top2_fold(const int32_t* partial, int64_t b, int n_slices,
+                            int tile_k, int nt_pow2, void* best, void* idx,
+                            void* next, cudaStream_t s) {
+  top2_fold<<<(unsigned)((b + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      partial, b, n_slices, tile_k, nt_pow2, static_cast<int32_t*>(best),
+      static_cast<int32_t*>(idx), static_cast<int32_t*>(next));
   return (int)cudaGetLastError();
 }
 

@@ -66,9 +66,10 @@ __device__ __forceinline__ void sts32_if(bool on, uint32_t addr, uint32_t v) {
 }
 
 template <int MODE>
-struct Probe {
+struct Probe : TwoTileSteps {
   static constexpr bool kBytes = MODE >= kI8Min;
   static constexpr int kStreamBytes = kBytes ? 1 : 4;
+  static constexpr int kMaxWidth = 128;
   struct Params {
     int ck, sink_flag;
   };
@@ -91,14 +92,8 @@ struct Probe {
                   kBytes ? 0x7f7f7f7fu : (uint32_t)((kMaxCount + 1) * p.ck));
     }
 
-    // Two counts as 16-bit lanes (low: x).
-    static __device__ __forceinline__ uint32_t lanes(int32_t x, int32_t y) {
-      return __byte_perm((uint32_t)x, (uint32_t)y, 0x5410);
-    }
-
-    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int s, int j) {
+    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int kb) {
       fence_acc(acc);
-      [[maybe_unused]] const int kb = s * kStageTiles + j;
       if constexpr (MODE == kMatmul) {
 #pragma unroll
         for (int i = 0; i < N / 2; ++i) sink[i & 3] += (uint32_t)acc[i];
@@ -141,8 +136,8 @@ struct Probe {
             const int ja = WordAt<N>::ja(4 * c + w);
             const int ia = 4 * ja + 2 * rr, ib = 4 * (ja + 1) + 2 * rr;
             // lanes of [0]: bytes 0, 1 of the word; of [1]: bytes 2, 3
-            y[w][0] = min16x2(lanes(acc[ia], acc[ia + 1]), cap) * (uint32_t)p.ck;
-            y[w][1] = min16x2(lanes(acc[ib], acc[ib + 1]), cap) * (uint32_t)p.ck;
+            y[w][0] = min16x2(lanes16(acc[ia], acc[ia + 1]), cap) * (uint32_t)p.ck;
+            y[w][1] = min16x2(lanes16(acc[ib], acc[ib + 1]), cap) * (uint32_t)p.ck;
             prev[w][0] = __byte_perm(v.w[w], 0u, 0x4140);
             prev[w][1] = __byte_perm(v.w[w], 0u, 0x4342);
             // min(m1, c8), c8 = min(counts_ck, 96), in one instruction
@@ -231,8 +226,9 @@ extern "C" int fqtk_lab_probe(const void* obs, int64_t b, int width,
                               int sink_flag, void* partial, void* out,
                               void* stream) {
   int64_t n_row_tiles = 0;
+  // every mode runs at the same width
   const int rc = check_lab_args(b, width, table, kp, length, tile_k, n_k_tiles,
-                                &n_row_tiles);
+                                lab_width<Probe<kM1Only>>(tile_k), &n_row_tiles);
   if (rc != 0) return rc;
   // ck: a power of two whose lanes (96 / ck + 1) * ck stay positive int16
   if (mode < kM1Only || mode > kI8MinMax || ck < 2 || ck > (1 << 14))
@@ -252,6 +248,7 @@ extern "C" int fqtk_lab_probe(const void* obs, int64_t b, int width,
   }
   if (e != cudaSuccess) return (int)e;
   probe_pass2<<<(unsigned)((b + 255) / 256), 256, 0, s>>>(
-      part, b, tile_k / width_of(tile_k), static_cast<int32_t*>(out));
+      part, b, tile_k / lab_width<Probe<kM1Only>>(tile_k),
+      static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }

@@ -11,16 +11,18 @@ production kernel.  Every variant is a hand-written Hopper kernel
   times the table by int8 ``mma.sync``, the nearest Hopper type to the
   TPU's int4 (exact for 0/1 operands);
 - ``v1_m1only``, ``v2_matmul``, ``v2b_store``, ``p_i8min``, ``p_i8minmax``
-  — bound probes (``lab_probe``: one accumulator stream, int32 or int8,
-  counts by ``wgmma`` on the engine of ``colmerge_top2``);
+  — bound probes (``lab_probe``: one accumulator stream, int32 or int8);
 - ``v5_clamp16``   — top-2 over int16 clamped keys (``clamp16_top2``);
 - ``v6_group{P}``  — exact top-2 with a register ladder over P K tiles
   (``group_top2``, P = 2, 4, 8);
 - ``v3_clamp8``, ``v3w_clamp8`` — top-2 over int8 clamped counts and a
-  uint8 first-tile id (``clamp8_top2``, counts by ``wgmma`` on the same
-  engine).  The two differ on the TPU only in the MXU's output type;
+  uint8 first-tile id (``clamp8_top2``).  The two differ on the TPU only in
+  the MXU's output type;
   ``wgmma``'s s8 product accumulates in s32 only, so both run the same
   kernel.
+
+All but ``v0_colmerge`` and ``v4_int4`` count by ``wgmma`` on the engine of
+``colmerge_top2`` (``csrc/lab_mma.cuh``).
 
 Run on the card::
 
@@ -147,7 +149,8 @@ def compat_classmajor4(masks: np.ndarray, k_padded: int, scale: int = 1) -> np.n
 def lab_table(masks: np.ndarray, tile_k: int, device: Union[str, torch.device]) -> torch.Tensor:
     """The lab's table on ``device``: :func:`compat_classmajor4` at
     ``k_padded = ceil(K / tile_k) * tile_k`` (unscaled), bit-packed to
-    ``[k_padded, ceil(4L/32)]`` uint32."""
+    ``[k_padded, ceil(4L/32)]`` uint32 (no kernel reads it: the tests'
+    oracle of the table's bits)."""
     k_padded = -(-masks.shape[0] // tile_k) * tile_k
     compat = torch.from_numpy(compat_classmajor4(masks, k_padded)).to(device)
     return pack_compat_bits(compat)
@@ -165,8 +168,9 @@ def lab_table_i8(masks: np.ndarray, tile_k: int, device: Union[str, torch.device
 
 
 def lab_table_tiled(masks: np.ndarray, tile_k: int, device: Union[str, torch.device]) -> torch.Tensor:
-    """The lab's table for the tensor-core kernels ``lab_probe`` and
-    ``clamp8_top2``: :func:`compat_classmajor4` at ``k_padded`` (unscaled,
+    """The lab's table for the tensor-core kernels ``lab_probe``,
+    ``clamp16_top2``, ``group_top2`` and ``clamp8_top2``:
+    :func:`compat_classmajor4` at ``k_padded`` (unscaled,
     pad columns all ones), tiled once by
     :func:`~fqtk_tpu_torch.ops.lab_kernels.pack_lab_table_i8` into int8
     ``[k_padded/8, KP/16, 8, 16]``, the order the product reads it."""
@@ -178,10 +182,9 @@ def lab_table_tiled(masks: np.ndarray, tile_k: int, device: Union[str, torch.dev
 def table_for(kernel: str, masks: np.ndarray, tile_k: int,
               device: Union[str, torch.device]) -> torch.Tensor:
     """The lab table lab kernel ``kernel`` reads, by its ``TABLE_FORMAT``:
-    :func:`lab_table_i8` for ``mma_probe``, :func:`lab_table_tiled` for
-    ``lab_probe`` and ``clamp8_top2``, the bits of :func:`lab_table` for the
-    POPC kernels."""
-    make = {"i8": lab_table_i8, "tiled": lab_table_tiled, "bits": lab_table}
+    :func:`lab_table_i8` for ``mma_probe``, :func:`lab_table_tiled` for the
+    others."""
+    make = {"i8": lab_table_i8, "tiled": lab_table_tiled}
     return make[TABLE_FORMAT[kernel]](masks, tile_k, device)
 
 
@@ -339,18 +342,20 @@ def spot_rows(codes: np.ndarray, rows: int = 4096) -> np.ndarray:
     return obs_codes
 
 
-def clamp8_tie_case(tile_k: int = 32) -> Tuple[np.ndarray, np.ndarray]:
-    """``(codes, reads)`` that exercise ``v3_clamp8``'s ties: barcodes of
-    three K tiles with tile 1 and tile 2 repeating tile 0's position 5, and
-    two reads: that barcode (the same clamped count 0 at position 5 of every
-    tile: the first tile must win) and one that is >= W away from every
-    barcode (c8 == W everywhere: t1 stays 0)."""
+def tie_case(tile_k: int = 32, n_tiles: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """``(codes, reads)`` that exercise the exact and clamped variants' ties:
+    barcodes of ``n_tiles`` K tiles in which every later tile repeats tile
+    0's position 5, and two reads: that barcode (the same count 0 at
+    position 5 of every tile: the first tile must win, within a group of
+    ``v6_group{P}`` and across groups) and one that is >= W away from every
+    barcode (``v3`` / ``v5``: every count clamps to W, so tile 0 and
+    position 0 win)."""
     length = 16
-    codes = unique_barcodes(3 * tile_k, length)
+    codes = unique_barcodes(n_tiles * tile_k, length)
     codes[:, 0] = np.minimum(codes[:, 0], 2)  # no barcode starts with T ...
     codes[:, 1:5] = np.minimum(codes[:, 1:5], 2)
-    codes[tile_k + 5] = codes[5]
-    codes[2 * tile_k + 5] = codes[5]
+    for kb in range(1, n_tiles):
+        codes[kb * tile_k + 5] = codes[5]
     far = np.full(length, 3, dtype=np.uint8)  # ... so TTTTT... is >= 5 away
     far[5:] = (codes[:, 5:].max(axis=0) + 1) % 4
     obs = np.stack([codes[5], far])

@@ -76,8 +76,7 @@ ENTRY_POINTS = {
     **{
         stem: [
             _P, _I64, _I32,  # obs, b, width
-            # bits, nw, length (clamp8_top2: the tiled int8 table, kp, length)
-            _P, _I32, _I32,
+            _P, _I32, _I32,  # table (tiled int8), kp, length
             _I32, _I32,  # tile_k, n_k_tiles
             _I32, _I32,  # w_clamp (group P for group_top2), nt_pow2
             _P,  # partial

@@ -36,8 +36,17 @@ import numpy as np
 import torch
 
 from ._build import load_kernel
-from .device_encoding import unpack_bit2
-from .matcher import MAX_COUNT, ExpectedSet, Top2, chunk_top2, merge_top2
+from .matcher import (
+    _PLAIN_CHUNK_ELEMS,
+    _ROADMAP_INPUTS,
+    MAX_COUNT,
+    ExpectedSet,
+    Top2,
+    _onehot_f32,
+    chunk_top2,
+    merge_top2,
+    resolve_device,
+)
 from .plan import _compat_classmajor, plan_local_kernel
 
 #: whitelist columns are padded to a multiple of this in the device table:
@@ -72,32 +81,6 @@ SCHEMES = ("colmerge_top2", "tile_top2")
 #: launch's ``cols_per_cta``, :func:`plan_chunks`; the result does not depend
 #: on the tiling)
 TILE_K = 1 << 13
-
-#: largest [B, kc] float32 block a plain version materializes
-_PLAIN_CHUNK_ELEMS = 1 << 27  # 512 MiB of float32
-
-_ROADMAP_INPUTS = (
-    "only packed2 (bit2) input is ported; nib4 and raw-byte inputs are "
-    "ROADMAP.md item 'torch make_assign_fn for nib4 and raw-byte inputs'"
-)
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a ``torch.device``; ``cuda`` without a card raises."""
-    try:
-        dev = torch.device(device)
-    except RuntimeError:
-        raise ValueError(f"device must be cuda or cpu, got {device!r}") from None
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is False "
-            f"(torch {torch.__version__}); pass device='cpu' to run the "
-            "plain PyTorch version"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
-
 
 def hopper_scheme(k: int, length: int) -> str:
     """``"colmerge_top2"`` where :func:`plan_local_kernel` keeps the TPU
@@ -211,15 +194,6 @@ def hopper_state_from_numpy(
         max_ns_in_barcodes=expected.max_ns_in_barcodes,
         device=dev,
     )
-
-
-def _onehot_f32(obs_bit2: torch.Tensor, length: int) -> torch.Tensor:
-    """``[B, 4L]`` float32 class-major one-hot of the bit2 rows:
-    ``onehot[b, c*L + l] = (code[b, l] == c)``."""
-    codes = unpack_bit2(obs_bit2, length)  # [B, L] int32
-    cls = torch.arange(4, dtype=torch.int32, device=obs_bit2.device)
-    onehot = (codes[:, None, :] == cls[None, :, None]).reshape(-1, 4 * length)
-    return onehot.to(torch.float32)
 
 
 def _top2_init(b: int, k: int, dev: torch.device) -> Top2:

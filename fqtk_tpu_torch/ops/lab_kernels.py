@@ -10,27 +10,28 @@ Counterparts of the Pallas bodies of ``scripts/kernel_lab.py`` (TPU kernels
 - ``csrc/lab_probe.cu`` (#4, ``make_variant`` -> ``build``, call ``:222``)
   — the bound probes ``v1_m1only``, ``v2_matmul``, ``v2b_store``,
   ``p_i8min`` and ``p_i8minmax``: counts times ``ck`` into one accumulator
-  stream, emit ``min_p(m1[p] * tile_k + p) >> 8``; counts by ``wgmma`` on
-  the engine of ``csrc/mma_count.cuh``;
+  stream, emit ``min_p(m1[p] * tile_k + p) >> 8``;
 - ``csrc/clamp16_top2.cu`` (#5, call ``:314``) — ``v5_clamp16``: top-2
-  over int16 keys ``min(count, W) * nt_pow2 + tile`` in two streams;
+  over int16 keys ``min(count, W) * nt_pow2 + tile`` in two streams,
+  updated in 16x2 lanes;
 - ``csrc/group_top2.cu`` (#6, call ``:419``) — ``v6_group{P}``: exact
   top-2, a register ladder over P K tiles before one update of two int32
   streams;
 - ``csrc/clamp8_top2.cu`` (#7, call ``:515``) — ``v3_clamp8`` and
-  ``v3w_clamp8``: top-2 over int8 clamped counts plus a uint8 first-tile id;
-  counts by ``wgmma`` on the same engine.
+  ``v3w_clamp8``: top-2 over int8 clamped counts plus a uint8 first-tile id.
+
+#4-#7 count by ``wgmma`` on the engine of ``csrc/mma_count.cuh``, through
+the lab's walk ``csrc/lab_mma.cuh``.
 
 Every variant reads the lab's table: the class-major 0/1 mismatch table
 padded with **all-ones** columns to ``k_padded = n_k_tiles * tile_k``
-(``kernel_lab.py:62-71``), in one of three formats: bit-packed by
-:func:`pack_compat_bits` for the POPC kernels (#5, #6); int8
-``[k_padded, KP]`` (a column's 4L entries, zero-padded to ``KP = 32 *
-ceil(4L / 32)``) for ``mma_probe``; and that int8 table tiled by
-:func:`pack_lab_table_i8` in the order ``wgmma`` reads it for ``lab_probe``
-and ``clamp8_top2``, whose plain versions read it back through
-:func:`lab_table_columns`.  :data:`TABLE_FORMAT` says which kernel reads
-which.  A pad column counts L mismatches
+(``kernel_lab.py:62-71``), in one of two formats: int8 ``[k_padded, KP]``
+(a column's 4L entries, zero-padded to ``KP = 32 * ceil(4L / 32)``) for
+``mma_probe``; and that int8 table tiled by :func:`pack_lab_table_i8` in
+the order ``wgmma`` reads it for the others, whose plain versions read it
+back through :func:`lab_table_columns`.  :data:`TABLE_FORMAT` says which
+kernel reads which (:func:`pack_compat_bits` packs the same table into
+bits, the tests' oracle of its entries).  A pad column counts L mismatches
 and takes part in every result, as in the JAX lab (kernels #1 and #2 mask
 such columns; these do not).
 
@@ -70,26 +71,32 @@ GROUP_PREFIX = "v6_group"
 #: group sizes ``group_top2.cu`` is instantiated for
 GROUP_SIZES = (2, 4, 8)
 
-#: ``tile_k`` must be a multiple of this: the column positions per CTA of
-#: the POPC kernels (``kSlice`` of ``csrc/lab_common.cuh``) and the smallest
-#: ``wgmma`` width of the tensor-core ones (:func:`lab_width`)
+#: ``tile_k`` must be a multiple of this: the smallest ``wgmma`` width of
+#: the tensor-core lab kernels (:func:`lab_width`)
 SLICE = 32
 
 #: the form of the lab's table each kernel and its plain version read:
-#: ``"bits"`` (:func:`pack_compat_bits`), ``"i8"`` (int8 ``[k_padded, KP]``)
-#: or ``"tiled"`` (:func:`pack_lab_table_i8`, the kernels that count by
-#: ``wgmma``)
+#: ``"i8"`` (int8 ``[k_padded, KP]``) or ``"tiled"``
+#: (:func:`pack_lab_table_i8`, the kernels that count by ``wgmma``)
 TABLE_FORMAT = {
-    "mma_probe": "i8", "lab_probe": "tiled", "clamp16_top2": "bits",
-    "group_top2": "bits", "clamp8_top2": "tiled",
+    "mma_probe": "i8", "lab_probe": "tiled", "clamp16_top2": "tiled",
+    "group_top2": "tiled", "clamp8_top2": "tiled",
 }
 
 #: bytes of a design's streams that pass through shared memory per (row,
 #: column) pair and K tile, reads and writes, at the TPU body's widths
+#: (``v6_group{P}``: two int32 streams once per P K tiles)
 STREAM_BYTES = {
     "v1_m1only": 8, "v2_matmul": 0, "v2b_store": 4, "p_i8min": 2,
-    "p_i8minmax": 4, "v3_clamp8": 6, "v3w_clamp8": 6,
+    "p_i8minmax": 4, "v3_clamp8": 6, "v3w_clamp8": 6, "v5_clamp16": 8,
+    "v6_group2": 8, "v6_group4": 4, "v6_group8": 2,
 }
+
+#: the widest ``wgmma`` each tensor-core lab kernel is built for
+#: (``kMaxWidth`` of its design): ``group_top2`` holds its register ladder
+#: across K tiles, at 64 columns in 16x2 lanes, at 32 where it needs int32
+#: (:func:`group_lanes16`)
+MAX_WIDTH = {"lab_probe": 128, "clamp16_top2": 128, "group_top2": 64, "clamp8_top2": 128}
 
 #: the variants of the kernels that read the tiled table
 TILED_VARIANTS = tuple(STREAM_BYTES)
@@ -120,25 +127,22 @@ def pack_compat_bits(compat: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32).view(torch.uint32)
 
 
-def _bit_columns(bits: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
-    """``[wl, k1 - k0]`` float32 0/1: columns ``k0 .. k1 - 1`` of the
-    class-major mismatch table that the bit table (:func:`pack_compat_bits`)
-    packs."""
-    j = torch.arange(wl, dtype=torch.int32, device=bits.device)
-    words = bits[k0:k1].view(torch.int32)[:, (j // 32).long()]  # [n, wl]
-    return ((words >> (j % 32)) & 1).T.to(torch.float32)
-
-
 def _i8_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
     """The same columns of the int8 ``[k_padded, KP]`` table."""
     return table[k0:k1, :wl].T.to(torch.float32)
 
 
-def lab_width(tile_k: int) -> int:
-    """Column positions per CTA of the tensor-core lab kernels at
-    ``tile_k``: the widest ``wgmma`` (128, 64 or 32 columns) that divides it
-    (``width_of``, ``csrc/lab_mma.cuh``)."""
-    return 128 if tile_k % 128 == 0 else 64 if tile_k % 64 == 0 else 32
+def lab_width(tile_k: int, cap: int = 128) -> int:
+    """Column positions per CTA of a tensor-core lab kernel at ``tile_k``:
+    the widest ``wgmma`` (128, 64 or 32 columns) that divides it, at most
+    ``cap``, the design's widest (``lab_width``, ``csrc/lab_mma.cuh``)."""
+    return min(cap, 128 if tile_k % 128 == 0 else 64 if tile_k % 64 == 0 else 32)
+
+
+def group_lanes16(length: int, nt_pow2: int) -> bool:
+    """Whether ``group_top2`` keeps its register ladder in 16x2 lanes:
+    every key ``count * nt_pow2 + kb`` (count <= L) is below 2^15."""
+    return length * nt_pow2 + nt_pow2 - 1 < 1 << 15
 
 
 def pack_lab_table_i8(compat: torch.Tensor) -> torch.Tensor:
@@ -174,7 +178,7 @@ def lab_table_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.T
 
 #: per table format: its columns reader and the columns a row of its first
 #: axis holds
-_COLUMNS = {"bits": (_bit_columns, 1), "i8": (_i8_columns, 1), "tiled": (lab_table_columns, 8)}
+_COLUMNS = {"i8": (_i8_columns, 1), "tiled": (lab_table_columns, 8)}
 
 
 @dataclass(frozen=True)
@@ -201,6 +205,15 @@ class LabParams:
     @property
     def k_padded(self) -> int:
         return self.n_k_tiles * self.tile_k
+
+    @property
+    def width(self) -> int:
+        """Column positions per CTA of the tensor-core kernel that runs
+        this variant (:func:`lab_width` at its design's :data:`MAX_WIDTH`)."""
+        cap = MAX_WIDTH[self.kernel]
+        if self.kernel == "group_top2" and not group_lanes16(self.length, self.nt_pow2):
+            cap = 32  # the int32 ladder
+        return lab_width(self.tile_k, cap)
 
     @property
     def scalars(self) -> Tuple[int, ...]:
@@ -483,8 +496,6 @@ class LabKernel:
     def table_spec(self, p: LabParams) -> Tuple[torch.dtype, Tuple[int, ...]]:
         """``(dtype, shape)`` of the table this kernel reads for ``p``."""
         kp = mma_depth(p.length)
-        if self.table_format == "bits":
-            return torch.uint32, (p.k_padded, kp // 32)
         if self.table_format == "i8":
             return torch.int8, (p.k_padded, kp)
         return torch.int8, (p.k_padded // 8, kp // 16, 8, 16)
@@ -506,8 +517,7 @@ class LabKernel:
     def n_slices(self, p: LabParams) -> int:
         """Column slices of a K tile, one CTA column each: the partials a
         row writes."""
-        width = lab_width(p.tile_k) if self.table_format == "tiled" else SLICE
-        return p.tile_k // width
+        return p.tile_k // p.width
 
     def __call__(
         self, obs_bit2: torch.Tensor, table: torch.Tensor, p: LabParams
@@ -531,8 +541,6 @@ class LabKernel:
             raise ValueError(f"the lab kernels take L <= {MAX_LAB_LENGTH}, got {p.length}")
         if p.kernel == "group_top2" and p.mode not in GROUP_SIZES:
             raise ValueError(f"group_top2 is built for P in {GROUP_SIZES}, got {p.mode}")
-        kp = mma_depth(p.length)
-        depth = kp // 32 if self.table_format == "bits" else kp
         fields = 3 if self.exact else 1
         out = torch.empty((fields, b), dtype=torch.int32, device=obs.device)
         if b == 0:
@@ -545,7 +553,7 @@ class LabKernel:
         with torch.cuda.device(obs.device):
             stream = torch.cuda.current_stream(obs.device).cuda_stream
             rc = launch(
-                obs.data_ptr(), b, width, table.data_ptr(), depth, p.length,
+                obs.data_ptr(), b, width, table.data_ptr(), mma_depth(p.length), p.length,
                 p.tile_k, p.n_k_tiles, *p.scalars,
                 *(t.data_ptr() for t in scratch),
                 *(o.data_ptr() for o in out), stream,

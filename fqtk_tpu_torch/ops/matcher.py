@@ -1,16 +1,18 @@
-"""The whitelist, the NumPy spec of barcode assignment, and top-2 reductions
-of per-sample mismatch counts in plain PyTorch.
+"""The whitelist, the NumPy spec of barcode assignment, top-2 reductions
+of per-sample mismatch counts in plain PyTorch, and the chunked-scan matcher
+built on them.
 
 :class:`ExpectedSet`, :func:`mismatch_counts_np`, :func:`assign_batch_np`
 and :func:`assign_batch_np_masks` are the port's own copy of the NumPy spec
-in ``fqtk_tpu/ops/matcher.py`` (``:42-159``); the XLA ``make_assign_fn`` of
-that module is not ported yet (ROADMAP.md).  :func:`merge_top2` and
+in ``fqtk_tpu/ops/matcher.py`` (``:42-159``).  :func:`merge_top2` and
 :func:`chunk_top2` are the counterparts of its ``merge_top2`` and
 ``_chunk_top2``.  A ``(best, idx, next)`` triple is the smallest count, the
 first column that reaches it, and the smallest count over every other
 column.  The plain version of the Hopper kernel
 (:func:`fqtk_tpu_torch.ops.hopper_matcher.colmerge_top2_reference`) is
-built from these two.  The C++ pigeonhole host matcher is
+built from these two, and so is :func:`make_assign_fn`, the counterpart of
+that module's XLA scan for bit2 input: the matcher of barcodes longer than
+255 bp.  The C++ pigeonhole host matcher is
 :class:`fqtk_tpu_torch.io.native.NativeBigKMatcher`.
 
 Semantics of the spec (the reference's ``src/lib/barcode_matching.rs``):
@@ -24,22 +26,32 @@ max_ns_in_barcodes`` are unassigned (``:170-172``); counts saturate at 255.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.encoding import ENCODE_LUT, NOCALL_LUT, count_nocalls
 from ..io.native import NativeBigKMatcher, NativeDemuxError
+from .device_encoding import unpack_bit2
 
 __all__ = [
     "MAX_COUNT", "UNMATCHED", "ExpectedSet", "NativeBigKMatcher",
-    "NativeDemuxError", "Top2", "assign_batch_np", "assign_batch_np_masks",
-    "chunk_top2", "merge_top2", "mismatch_counts_np",
+    "NativeDemuxError", "ScanAssignFn", "Top2", "assign_batch_np",
+    "assign_batch_np_masks", "chunk_top2", "make_assign_fn", "merge_top2",
+    "mismatch_counts_np", "resolve_device",
 ]
 
 UNMATCHED = -1  # sentinel in *logical* output; device uses index K
 MAX_COUNT = 255  # u8 saturation of the reference
+
+#: largest [rows, columns] float32 block a plain version materializes
+_PLAIN_CHUNK_ELEMS = 1 << 27  # 512 MiB of float32
+
+_ROADMAP_INPUTS = (
+    "only packed2 (bit2) input is ported; nib4 and raw-byte inputs are "
+    "ROADMAP.md item 'torch make_assign_fn for nib4 and raw-byte inputs'"
+)
 
 
 @dataclass(frozen=True)
@@ -187,3 +199,150 @@ def chunk_top2(counts: torch.Tensor) -> Top2:
     col = torch.arange(k, dtype=torch.int32, device=counts.device)
     masked = torch.where(col[None, :] == best_idx[:, None], MAX_COUNT, counts)
     return best, best_idx, torch.min(masked, dim=-1).values
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; ``cuda`` without a card raises."""
+    try:
+        dev = torch.device(device)
+    except RuntimeError:
+        raise ValueError(f"device must be cuda or cpu, got {device!r}") from None
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False "
+            f"(torch {torch.__version__}); pass device='cpu' to run the "
+            "plain PyTorch version"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev
+
+
+def _onehot_f32(obs_bit2: torch.Tensor, length: int) -> torch.Tensor:
+    """``[B, 4L]`` float32 class-major one-hot of the bit2 rows:
+    ``onehot[b, c*L + l] = (code[b, l] == c)``."""
+    codes = unpack_bit2(obs_bit2, length)  # [B, L] int32
+    cls = torch.arange(4, dtype=torch.int32, device=obs_bit2.device)
+    onehot = (codes[:, None, :] == cls[None, :, None]).reshape(-1, 4 * length)
+    return onehot.to(torch.float32)
+
+
+class ScanAssignFn:
+    """``obs [B, ceil(L/4)] uint8 (numpy or torch) -> (assigned, best,
+    next)`` as tensors on ``device``: :func:`make_assign_fn`'s matcher.
+
+    ``chunks`` is the whitelist as the int8 ``[n_chunks, 4L, kc]`` mismatch
+    table (class-major rows ``c*L + l``, pad columns all ones) on
+    ``device``; ``calls`` counts calls.  No kernel runs here: ``scheme`` is
+    ``"xla_scan"``, the route's name in the demux log and matcher counts."""
+
+    scheme = "xla_scan"
+
+    def __init__(self, chunks: torch.Tensor, k: int, length: int,
+                 max_mismatches: int, min_mismatch_delta: int,
+                 compact_output: bool) -> None:
+        self.chunks = chunks
+        self.k = k
+        self.length = length
+        self.device = chunks.device
+        self.max_mismatches = max_mismatches
+        self.min_mismatch_delta = min_mismatch_delta
+        self.out_dtype = torch.uint8 if compact_output and k < 255 else torch.int32
+        self.calls = 0
+        # MACs of the dense one-hot contraction (bench accounting)
+        self.macs_per_row = int(chunks.shape[0]) * int(chunks.shape[2]) * 4 * length
+
+    def _top2(self, onehot: torch.Tensor) -> Top2:
+        """The ``lax.scan`` of ``make_assign_fn``'s counts branch
+        (``fqtk_tpu/ops/matcher.py:332-356``) over ``onehot``'s rows."""
+        b = onehot.shape[0]
+        n_chunks, _, kc = self.chunks.shape
+        acc = (
+            torch.full((b,), MAX_COUNT, dtype=torch.int32, device=self.device),
+            torch.full((b,), self.k, dtype=torch.int32, device=self.device),
+            torch.full((b,), MAX_COUNT, dtype=torch.int32, device=self.device),
+        )
+        local = torch.arange(kc, dtype=torch.int32, device=self.device)
+        for i in range(n_chunks):
+            counts = torch.matmul(onehot, self.chunks[i].to(torch.float32))
+            counts = torch.clamp(counts.to(torch.int32), max=MAX_COUNT)
+            # columns >= K (all-ones pad) never win
+            counts = torch.where(local[None, :] + i * kc < self.k, counts, MAX_COUNT)
+            cb, ci, cn = chunk_top2(counts)
+            acc = merge_top2(acc, (cb, ci + i * kc, cn))
+        return acc
+
+    def __call__(
+        self, obs: Union[np.ndarray, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if isinstance(obs, np.ndarray):
+            obs = torch.from_numpy(np.ascontiguousarray(obs))
+        if obs.dtype != torch.uint8 or obs.dim() != 2 or obs.shape[1] != (self.length + 3) // 4:
+            raise ValueError(
+                f"obs must be [B, {(self.length + 3) // 4}] uint8 bit2 rows, got "
+                f"{obs.dtype} {tuple(obs.shape)}"
+            )
+        # H2D is asynchronous for a CUDA device: the caller keeps the host
+        # buffer alive until it has fetched this call's result
+        obs = obs.to(self.device, non_blocking=True)
+        onehot = _onehot_f32(obs, self.length)
+        rows = max(1, _PLAIN_CHUNK_ELEMS // int(self.chunks.shape[2]))
+        parts = [self._top2(onehot[r0:r0 + rows]) for r0 in range(0, max(1, len(onehot)), rows)]
+        best, idx, nxt = (
+            parts[0] if len(parts) == 1 else tuple(torch.cat(f) for f in zip(*parts))
+        )
+        self.calls += 1
+        # pure-ACGT rows by construction: the no-call gate ran on the host
+        ok = (best <= self.max_mismatches) & (nxt - best >= self.min_mismatch_delta)
+        assigned = torch.where(ok, idx, self.k).to(self.out_dtype)
+        return assigned, best, nxt
+
+
+def make_assign_fn(
+    expected: ExpectedSet,
+    max_mismatches: int,
+    min_mismatch_delta: int,
+    k_chunk: int = 16384,
+    packed_masks: bool = False,
+    packed2: bool = False,
+    compact_output: bool = False,
+    *,
+    device: Union[str, torch.device],
+) -> ScanAssignFn:
+    """The counterpart of ``fqtk_tpu.ops.matcher.make_assign_fn`` for bit2
+    input (``packed2=True``): ``obs [B, ceil(L/4)] -> (assigned, best,
+    next)`` for any barcode length, on ``device``.
+
+    ``assigned[b] == K`` is unmatched; uint8 when ``compact_output`` and
+    ``K < 255``.  K is walked in chunks of ``k_chunk`` columns, as the JAX
+    ``lax.scan`` does: per chunk the counts are a float32 ``torch.matmul``
+    of the ``[B, 4L]`` one-hot with the chunk's columns (exact: 0/1 entries
+    are exact in float32, and in TF32 or bf16 too, and sums stay <= L, far
+    below 2^24), clamped at 255, columns >= K set to 255, reduced by
+    :func:`chunk_top2` and merged in ascending order by :func:`merge_top2`
+    from ``(255, K, 255)``; so ``next`` is 255 when ``K == 1``.  Gate:
+    ``best <= max_mismatches`` and ``next - best >= min_mismatch_delta``; no
+    no-call gate (bit2 rows are pure ACGT: the engine resolved the others).
+
+    Not a port of a TPU kernel: the JAX package computes this in XLA outside
+    any Pallas kernel, so plain PyTorch and ``torch.matmul`` run it here on
+    the card as on the CPU.  Only the counts branch of the JAX scan
+    (``:340-351``) is ported; its combined float-key branch (``:318-339``,
+    taken there for ``L <= 255``) gives the same results and is an XLA-side
+    speed trick.  nib4 and raw-byte inputs are not ported (ROADMAP.md)."""
+    from .plan import _compat_classmajor  # plan imports this module
+
+    if packed_masks or not packed2:
+        raise NotImplementedError(_ROADMAP_INPUTS)
+    if k_chunk < 1:
+        raise ValueError(f"k_chunk must be >= 1, got {k_chunk}")
+    dev = resolve_device(device)
+    k, length = expected.count, expected.length
+    kc = min(k_chunk, k)
+    n_chunks = -(-k // kc)
+    compat = _compat_classmajor(expected.masks, n_chunks * kc, 4)  # [4L, k_pad]
+    chunks = np.ascontiguousarray(compat.reshape(4 * length, n_chunks, kc).transpose(1, 0, 2))
+    return ScanAssignFn(
+        torch.from_numpy(chunks).to(dev), k, length, max_mismatches,
+        min_mismatch_delta, compact_output,
+    )

@@ -7,8 +7,10 @@ native engine:
    :mod:`fqtk_tpu_torch.io.native`) parses the FASTQs and packs each read's
    sample barcode as 2-bit codes (``[B, ceil(L/4)]`` uint8, "bit2"),
 2. each window goes to the Hopper matcher
-   (:func:`fqtk_tpu_torch.ops.hopper_matcher.make_hopper_assign_fn`), one
-   call kept in flight while the previous window is fetched and routed;
+   (:func:`fqtk_tpu_torch.ops.hopper_matcher.make_hopper_assign_fn`), or for
+   barcodes longer than 255 bp to the chunked scan of
+   :func:`fqtk_tpu_torch.ops.matcher.make_assign_fn`, one call kept in
+   flight while the previous window is fetched and routed;
    rows that are not pure ACGT are resolved on the host with the NumPy spec,
 3. the engine routes records to per-sample BGZF writers.
 
@@ -27,7 +29,7 @@ import stat
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,7 +44,7 @@ from ..core.samples import SampleGroup
 from ..io import native as native_io
 from ..ops._build import ensure_native_engine
 from ..ops.hopper_matcher import make_hopper_assign_fn, resolve_device
-from ..ops.matcher import ExpectedSet, assign_batch_np
+from ..ops.matcher import ExpectedSet, ScanAssignFn, assign_batch_np, make_assign_fn
 from ..utils.floatfmt import format_f64
 from ..utils.profiling import StageTimers, maybe_device_trace
 
@@ -112,10 +114,13 @@ class DemuxResult:
     skip_counts: Dict[str, int]
     total_templates: int
     timings: Dict[str, float] = field(default_factory=dict)
-    #: device matcher counters: ``launches`` and ``plain_calls`` over both
-    #: kernels, and ``<kernel>_launches`` / ``<kernel>_plain_calls`` for
-    #: ``colmerge_top2`` and ``tile_top2``; empty when a host matcher ran
-    matcher: Dict[str, int] = field(default_factory=dict)
+    #: the device matcher's route (``scheme``: ``colmerge_top2``,
+    #: ``tile_top2`` or ``xla_scan``) and counters: ``launches`` and
+    #: ``plain_calls`` over both Hopper kernels and ``<kernel>_launches`` /
+    #: ``<kernel>_plain_calls`` for each; the ``xla_scan`` route runs no
+    #: kernel (``launches`` and ``plain_calls`` 0) and counts its ``calls``;
+    #: empty when a host matcher ran
+    matcher: Dict[str, Union[int, str]] = field(default_factory=dict)
 
 
 def _parse_output_types(chars: Sequence[str]) -> List[SegmentType]:
@@ -347,32 +352,38 @@ def _build_device_assign_fn(cfg: DemuxConfig, expected: ExpectedSet, barcodes):
 
 
 def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
-    """The Hopper matcher on one device, bit2 input, behind the window
-    dedup.  Returns ``(assign, "bit2", False)``; ``assign(obs)`` returns a
-    :class:`_Pending`."""
+    """The device matcher on one device, bit2 input, behind the window
+    dedup: the Hopper matcher for barcodes of at most 255 bp, the chunked
+    scan of :func:`~fqtk_tpu_torch.ops.matcher.make_assign_fn` above (where
+    the JAX package's device path leaves its Pallas kernel for
+    ``make_assign_fn(packed2=True)``).  Returns ``(assign, "bit2",
+    False)``; ``assign(obs)`` returns a :class:`_Pending`."""
     if cfg.devices is not None and cfg.devices > 1:
         raise DemuxError(f"--devices {cfg.devices}: multi-GPU mesh {_ROADMAP}")
-    if expected.length > 255:
-        raise DemuxError(
-            f"barcode length {expected.length} > 255: the Hopper matcher's "
-            "8-bit count key does not hold it, and the XLA-scan counterpart "
-            f"for long barcodes is {_ROADMAP}"
+    if expected.length <= 255:
+        # colmerge_top2 up to K = 4,194,304, tile_top2 above (hopper_scheme)
+        fn = make_hopper_assign_fn(
+            expected,
+            cfg.max_mismatches,
+            cfg.min_mismatch_delta,
+            device=cfg.device,
+            packed2=True,
+            compact_output=True,
         )
-    # colmerge_top2 up to K = 4,194,304, tile_top2 above (hopper_scheme)
-    fn = make_hopper_assign_fn(
-        expected,
-        cfg.max_mismatches,
-        cfg.min_mismatch_delta,
-        device=cfg.device,
-        packed2=True,
-        compact_output=True,
-    )
+        route = f"Hopper {fn.scheme} on {fn.state.device}"
+    else:
+        # the 8-bit count key of the Hopper kernels does not hold L > 255
+        fn = make_assign_fn(
+            expected,
+            cfg.max_mismatches,
+            cfg.min_mismatch_delta,
+            packed2=True,
+            compact_output=True,
+            device=cfg.device,
+        )
+        route = f"{fn.scheme} (float32 torch.matmul per K chunk) on {fn.device}"
     logger.info(
-        "device matcher: Hopper %s on %s (K=%d, L=%d)",
-        fn.scheme,
-        fn.state.device,
-        expected.count,
-        expected.length,
+        "device matcher: %s (K=%d, L=%d)", route, expected.count, expected.length
     )
 
     def assign(obs_packed):
@@ -677,9 +688,23 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
         for reason, count in sorted(skip_counts.items(), key=lambda kv: kv[1]):
             logger.info("%d records were skipped due to Too few bases", count)
 
-    matcher_stats: Dict[str, int] = {}
-    if device_matcher is not None:
+    matcher_stats: Dict[str, Union[int, str]] = {}
+    if isinstance(device_matcher, ScanAssignFn):
+        # the route of barcodes longer than 255 bp runs no kernel
         matcher_stats = {
+            "scheme": device_matcher.scheme,
+            "launches": 0,
+            "plain_calls": 0,
+            "calls": device_matcher.calls,
+        }
+        logger.info(
+            "device matcher %s: %d calls, no kernel",
+            device_matcher.scheme,
+            device_matcher.calls,
+        )
+    elif device_matcher is not None:
+        matcher_stats = {
+            "scheme": device_matcher.scheme,
             "launches": device_matcher.launches,
             "plain_calls": device_matcher.plain_calls,
         }

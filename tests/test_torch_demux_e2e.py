@@ -127,6 +127,23 @@ def test_port_host_matcher_has_no_device_counts(dataset):
     assert _outputs(out) == _outputs(tmp / "numpy")
 
 
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_port_host_matcher_fused_and_serial(dataset, monkeypatch, fused):
+    """``--matcher host`` with the engine's fused assign thread
+    (``FQTK_FUSED_ASSIGN=1``) and with the Python loop's serial arm (``0``): the
+    same bytes as the NumPy engine either way."""
+    tmp, paths, meta = dataset
+    monkeypatch.setenv("FQTK_FUSED_ASSIGN", fused)
+    out = tmp / f"port_host_fused{fused}"
+    res = torch_demux.run_demux(
+        torch_demux.DemuxConfig(**_kw(paths, meta, out, matcher="host", device="cpu"))
+    )
+    assert _outputs(out) == _outputs(tmp / "numpy")
+    assert res.total_templates == N_READS and res.matcher == {}
+    # only the serial arm assigns and submits from the Python thread
+    assert ("assign" in res.timings) == ("submit" in res.timings) == (fused == "0")
+
+
 @pytest.mark.parametrize(
     "kw,match",
     [

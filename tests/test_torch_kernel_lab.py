@@ -117,12 +117,23 @@ def test_variant_matches_jax_lab(script, interpret, name, shape):
 TILED_SHAPES = [(1000, 31, 32, 64), (500, 7, 32, 96)]
 
 
+def whole_groups(name, k, tile_k):
+    """``k``, or for ``v6_group{P}`` the K of as many more K tiles as make
+    their count a multiple of 8 (every P), with the same ragged last tile."""
+    if not name.startswith("v6_group"):
+        return k
+    n = -(-k // tile_k)
+    return k + (-(-n // 8) * 8 - n) * tile_k
+
+
 @pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "K%d_L%d_tb%d_tk%d" % s)
 @pytest.mark.parametrize("name", lk.TILED_VARIANTS)
 def test_tiled_variant_matches_jax_lab(script, interpret, name, shape):
-    """``lab_probe`` and ``clamp8_top2`` through the tiled int8 table at the
-    slice widths 64 and 32: equal to the JAX lab, tolerance 0."""
+    """Every kernel that reads the tiled int8 table (``lab_probe``,
+    ``clamp16_top2``, ``group_top2``, ``clamp8_top2``) at the slice widths
+    64 and 32: equal to the JAX lab, tolerance 0."""
     k, length, tile_b, tile_k = shape
+    k = whole_groups(name, k, tile_k)
     codes = lab.unique_barcodes(k, length)
     obs = reads(codes, B, seed=k + length)
     want, want_macs = run_jax(script, name, codes, obs, tile_b, tile_k)
@@ -136,7 +147,7 @@ def test_tiled_variant_matches_jax_lab(script, interpret, name, shape):
 def test_clamp8_ties_match_jax_lab(script, interpret, name):
     """The same clamped count at one position of three K tiles (the first
     tile wins) and a read that clamps to W everywhere (tile id 0 stays)."""
-    codes, rows = lab.clamp8_tie_case(tile_k=32)
+    codes, rows = lab.tie_case(tile_k=32)
     obs = np.concatenate([rows, reads(codes, 30, seed=4)])
     want, _ = run_jax(script, name, codes, obs, 32, 32)
     got, _, go = run_port(name, codes, obs, 32, 32)
@@ -145,6 +156,46 @@ def test_clamp8_ties_match_jax_lab(script, interpret, name):
     idx, best, nxt = got
     assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
     assert (best[1], idx[1], nxt[1]) == (go.params.w_clamp, 0, go.params.w_clamp)
+
+
+@pytest.mark.parametrize("name", ["v5_clamp16", "v6_group2", "v6_group4", "v6_group8"])
+def test_exact_ties_match_jax_lab(script, interpret, name):
+    """Count 0 at position 5 of eight K tiles: the first tile wins within a
+    group of ``v6_group{P}`` and across groups, and for ``v5_clamp16``
+    against keys of later tiles; a read whose every count is above W
+    (``v5_clamp16``: all clamp to W, tile 0 and position 0 win)."""
+    codes, rows = lab.tie_case(tile_k=32, n_tiles=8)
+    obs = np.concatenate([rows, reads(codes, 30, seed=5)])
+    want, _ = run_jax(script, name, codes, obs, 32, 32)
+    got, _, go = run_port(name, codes, obs, 32, 32)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    idx, best, nxt = got
+    assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
+    if name == "v5_clamp16":
+        assert (best[1], idx[1], nxt[1]) == (go.params.w_clamp, 0, go.params.w_clamp)
+    else:
+        assert best[1] >= 5
+
+
+@pytest.mark.parametrize(
+    "name,k,length,tile_k,width,lanes16",
+    [("v5_clamp16", 737_280, 16, 2048, 128, None), ("v6_group4", 737_280, 16, 2048, 64, True),
+     ("v6_group2", 1100, 16, 96, 32, True), ("v3_clamp8", 1000, 16, 64, 64, None),
+     ("v6_group8", 1024 * 256, 15, 256, 64, True),
+     # keys of 15 bits or more: group_top2's int32 twin
+     ("v6_group8", 33_019, 16, 32, 32, False), ("v6_group8", 2056 * 256, 15, 256, 32, False)],
+)
+def test_kernel_widths(name, k, length, tile_k, width, lanes16):
+    """The CTA width each kernel runs at, as ``csrc/lab_mma.cuh``'s
+    ``lab_width`` gives it (``group_top2``: at most 64 in 16x2 lanes, 32 in
+    int32), and the partials' slices that follow from it."""
+    p = lk.lab_params(name, k, length, tile_k)
+    assert p.width == width
+    assert lk.LAB_KERNELS[p.kernel].n_slices(p) == tile_k // width
+    if p.kernel == "group_top2":
+        assert lk.group_lanes16(length, p.nt_pow2) is lanes16
+        assert lanes16 == (length * p.nt_pow2 + p.nt_pow2 - 1 < 1 << 15)
 
 
 @pytest.mark.parametrize("tile_k", [32, 64, 96, 128, 256])
@@ -182,12 +233,13 @@ def test_tiled_table_reads_back(k, length, tile_k):
 
 
 def test_tiled_wrappers_reject_other_tables():
-    """``lab_probe`` and ``clamp8_top2`` take the tiled int8 table only: the
-    bit table, another dtype, another depth and a misaligned view raise."""
+    """``lab_probe``, ``clamp16_top2``, ``group_top2`` and ``clamp8_top2``
+    take the tiled int8 table only: the bit table, the plain int8 table,
+    another dtype, another depth and a misaligned view raise."""
     codes = lab.unique_barcodes(500, 16)
     masks = lab.masks_of(codes)
     obs = torch.from_numpy(lab.pack_bit2(codes[:32]))
-    for name in ("v1_m1only", "v3_clamp8"):
+    for name in ("v1_m1only", "v3_clamp8", "v5_clamp16", "v6_group4"):
         p = lk.lab_params(name, 500, 16, 128)
         kern = lk.make_lab_kernels()[p.kernel]
         table = lab.table_for(p.kernel, masks, 128, "cpu")
@@ -209,10 +261,6 @@ def test_tiled_wrappers_reject_other_tables():
             kern(obs, strided, p)
         assert (kern.launches, kern.plain_calls) == (0, 0)
         assert kern(obs, table, p) is not None and kern.plain_calls == 1
-    # the POPC kernels keep the bit table
-    p = lk.lab_params("v5_clamp16", 500, 16, 128)
-    with pytest.raises(ValueError, match="bits table"):
-        lk.make_lab_kernels()["clamp16_top2"](obs, lab.lab_table_tiled(masks, 128, "cpu"), p)
 
 
 def test_stream_bytes_cover_the_tiled_variants():

@@ -1,6 +1,8 @@
 """The CUDA kernels ``colmerge_top2``, ``tile_top2`` and the kernel lab's
-(``lab_probe``, ``clamp16_top2``, ``group_top2``, ``clamp8_top2``) against
-their plain PyTorch versions and the NumPy spec, on the card.  Marked
+(``mma_probe``, ``lab_probe``, ``clamp16_top2``, ``group_top2``,
+``clamp8_top2``) against their plain PyTorch versions and the NumPy spec,
+and the long-barcode route (``make_assign_fn``) against the NumPy spec, on
+the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -16,6 +18,7 @@ from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
 from fqtk_tpu_torch.ops import hopper_matcher as hm
 from fqtk_tpu_torch.ops import lab_kernels as lk
 from fqtk_tpu_torch.ops.device_encoding import pack_bit2
+from fqtk_tpu_torch.ops.matcher import make_assign_fn
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -284,9 +287,10 @@ LAB_CASES = [
     ("v1_m1only", 3000, 31, 96),
 ]
 
-#: each variant of the two kernels that count on the tensor cores
-#: (``lab_probe``, ``clamp8_top2``) at every ``wgmma`` width (N = 32, 64, 128 at tile_k 96, 64,
-#: 128 / 256) and table depth (KP = 32, 64, 96, 128 at L 7, 16, 24, 31)
+#: each variant of the kernels that count on the tensor cores (``lab_probe``,
+#: ``clamp16_top2``, ``group_top2``, ``clamp8_top2``) at every ``wgmma``
+#: width (N = 32, 64, 128 at tile_k 96, 64, 128 / 256; ``group_top2`` at most
+#: 64) and table depth (KP = 32, 64, 96, 128 at L 7, 16, 24, 31)
 LAB_CASES += [
     (name, 3000, length, tile_k)
     for name in lk.TILED_VARIANTS
@@ -294,9 +298,19 @@ LAB_CASES += [
 ]
 
 
+def whole_groups(name, k, tile_k):
+    """``k``, or for ``v6_group{P}`` the K of as many more K tiles as make
+    their count a multiple of 8 (every P), with the same ragged last tile."""
+    if not name.startswith("v6_group"):
+        return k
+    n = -(-k // tile_k)
+    return k + (-(-n // 8) * 8 - n) * tile_k
+
+
 def lab_case(name, k, length, tile_k, b, seed):
     from fqtk_tpu_torch.lab import kernel_lab as lab
 
+    k = whole_groups(name, k, tile_k)
     codes = lab.unique_barcodes(k, length)
     rng = np.random.default_rng(seed)
     obs = codes[rng.integers(0, k, size=b)].copy()
@@ -371,7 +385,7 @@ def test_clamp8_ties_on_card(name):
     from fqtk_tpu_torch.lab import kernel_lab as lab
 
     tile_k = 32
-    codes, rows = lab.clamp8_tie_case(tile_k)
+    codes, rows = lab.tie_case(tile_k)
     params = lk.lab_params(name, len(codes), 16, tile_k)
     table = lab.table_for(params.kernel, lab.masks_of(codes), tile_k, "cuda")
     obs = torch.from_numpy(lab.pack_bit2(rows)).cuda()
@@ -383,6 +397,64 @@ def test_clamp8_ties_on_card(name):
     assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
     # every count clamps to W: tile id 0, position 0
     assert (best[1], idx[1], nxt[1]) == (params.w_clamp, 0, params.w_clamp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v5_clamp16", "v6_group2", "v6_group4", "v6_group8"])
+def test_exact_ties_on_card(name):
+    """Count 0 at position 5 of eight K tiles: the first tile wins, within a
+    group and across groups; ``v5_clamp16``: a read whose every count is
+    above W clamps to W everywhere (tile 0, position 0)."""
+    _need_card()
+    from fqtk_tpu_torch.lab import kernel_lab as lab
+
+    tile_k = 32
+    codes, rows = lab.tie_case(tile_k, n_tiles=8)
+    params = lk.lab_params(name, len(codes), 16, tile_k)
+    table = lab.table_for(params.kernel, lab.masks_of(codes), tile_k, "cuda")
+    obs = torch.from_numpy(lab.pack_bit2(rows)).cuda()
+    kern = lk.make_lab_kernels()[params.kernel]
+    best, idx, nxt = (x.cpu().tolist() for x in kern(obs, table, params))
+    want = kern.reference(obs, table, params)
+    assert [best, idx, nxt] == [x.cpu().tolist() for x in want]
+    assert (best[0], idx[0], nxt[0]) == (0, 5, 0)
+    if name == "v5_clamp16":
+        assert (best[1], idx[1], nxt[1]) == (params.w_clamp, 0, params.w_clamp)
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v6_group2", "v6_group4", "v6_group8"])
+def test_group_int32_twin_on_card(name):
+    """Keys of 15 bits or more (L 16, 1,032 K tiles: nt_pow2 2,048): the
+    int32 twin of ``group_top2``'s 16x2-lane ladder, at N = 32."""
+    _need_card()
+    params, table, obs = lab_case(name, 33_019, 16, 32, b=300, seed=6)
+    assert params.n_k_tiles == 1032 and not lk.group_lanes16(16, params.nt_pow2)
+    assert params.width == 32
+    kern = lk.make_lab_kernels()["group_top2"]
+    got = kern(obs, table, params)
+    want = kern.reference(obs, table, params)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,length,mm,delta", [(96, 300, 1, 2), (1, 256, 0, 0), (300, 260, 2, 1)])
+def test_long_barcode_route_on_card(k, length, mm, delta):
+    """``make_assign_fn``, the route of barcodes longer than 255 bp, on CUDA
+    tensors against the NumPy spec (uint8 ``assigned`` below 255 samples)."""
+    _need_card()
+    rng = np.random.default_rng(k + length)
+    es, obs = whitelist_case(rng, k, length, 1024)
+    fn = make_assign_fn(es, mm, delta, packed2=True, compact_output=True, device="cuda")
+    assigned, best, nxt = fn(pack_bit2(obs))
+    assert assigned.is_cuda and assigned.dtype == (torch.uint8 if k < 255 else torch.int32)
+    for got, want in zip((assigned, best, nxt), spec(obs, es, mm, delta)):
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
+    assert fn.scheme == "xla_scan" and fn.calls == 1
 
 
 @pytest.mark.gpu
