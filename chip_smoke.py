@@ -16,7 +16,14 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              times of all four, each kernel's bound (the larger of its int8
              operations over the card's peak and its bytes over the memory
              rate) and, as information, ``torch._int_mm`` for the counts
-             alone; each kernel on a state built for it.  Then one call of
+             alone; each kernel on a state built for it.  Then the 16-class
+             input (rows of 4-bit IUPAC masks against a 16-class table, the
+             no-call gate on the card): raw bytes and nib4 rows through
+             ``make_hopper_assign_fn(packed2=False)`` at K = 96 (L 17,
+             B 8,192) and K = 8,192 (L 16, B 131,072), each call launching
+             ``colmerge_top2`` with no plain call, its kernel's (best, idx,
+             next) equal to the plain version's and its gated result equal
+             to the NumPy spec ``assign_batch_np``.  Then one call of
              the route of barcodes longer than 255 bp (``make_assign_fn``,
              plain PyTorch on the card, no kernel) at K = 96, L = 300,
              B = 8,192, equal to the NumPy spec ``assign_batch_np``.
@@ -35,7 +42,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              must pick ``tile_top2`` on its own and launch it
              (no plain call, no ``colmerge_top2`` launch); ``assigned`` must
              equal the plain version's gated result on the same rows and the
-             C++ pigeonhole host matcher's.
+             C++ pigeonhole host matcher's.  Then one raw-byte call at
+             B = 16,384 (IUPAC and no-call reads) through the 16-class
+             input: ``tile_top2`` launched, equal to its plain version and,
+             on its first rows, to the NumPy spec.
 6. kernel lab — ``python -m fqtk_tpu_torch.lab.kernel_lab``'s run at its
              full size (K = 737,280 barcodes of L = 16, W = 4): every
              default spec (``DEFAULT_SPECS``: the JAX lab's defaults, plus
@@ -49,9 +59,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              gave it — B = 131,072 and 65,536 on the rate slope's own rows —
              and at a ragged B = 15,872 of the spot check's reads, with
              kernel and plain times at B = 16,384 and, for the variants of
-             the tensor-core lab kernels (all but ``mma_probe``), the
-             design's stream bytes per (row, column) pair and the
-             shared-memory stream bound beside the int8 bound.
+             the tensor-core lab kernels, the design's stream bytes per
+             (row, column) pair and the shared-memory stream bound beside
+             the int8 bound.
 
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
@@ -59,7 +69,8 @@ The build fails the run if a kernel on the tensor-core engine
 After the last phase the script fails if ``jax`` or any module of the JAX
 package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
 as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
-kernel: launches on its path, max abs error, kernel / plain / bound /
+kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
+rows): launches on its path, max abs error, kernel / plain / bound /
 library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
 ``build/fqtk_tpu_torch/smoke_logs/``.
@@ -111,6 +122,10 @@ KERNEL_SHAPES = [
     (737_280, 16, 16_384),
 ]
 MAIN_PATH_SHAPE = (96, 17, 8192)
+#: (K, L, B) of the 16-class calls through make_hopper_assign_fn (phase 3);
+#: the NumPy spec is held to the first MASK_SPEC_ROWS rows of each
+MASK_SHAPES = [(96, 17, 8192), (8192, 16, 131_072)]
+MASK_SPEC_ROWS = 8192
 #: (K, L, B) of the long-barcode route's call
 LONG_SHAPE = (96, 300, 8192)
 
@@ -224,16 +239,18 @@ def top2_bound(k_counted: int, depth: int, b: int, width: int, table_bytes: int)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def int_mm_counts_ms(obs: torch.Tensor, length: int, cols: int, reps: int = 5) -> float:
+def int_mm_counts_ms(obs: torch.Tensor, length: int, cols: int, reps: int = 5,
+                     classes: int = 4) -> float:
     """Time of ``torch._int_mm`` for the COUNTS ALONE of ``obs``'s rows
-    against ``cols`` random 0/1 int8 columns at depth 4L rounded up to 32 (no
-    top-2: no one PyTorch call computes the kernels' function).  A yardstick
-    that the port never calls."""
-    from fqtk_tpu_torch.ops.hopper_matcher import _onehot_f32
+    (bit2 at 4 classes, nib4 at 16) against ``cols`` random 0/1 int8 columns
+    at depth ``classes * L`` rounded up to 32 (no top-2: no one PyTorch call
+    computes the kernels' function).  A yardstick that the port never
+    calls."""
+    from fqtk_tpu_torch.ops.hopper_matcher import _onehot_of
 
-    depth = -(-4 * length // 32) * 32
+    depth = -(-classes * length // 32) * 32
     onehot = torch.zeros((obs.shape[0], depth), dtype=torch.int8, device=obs.device)
-    onehot[:, :4 * length] = _onehot_f32(obs, length).to(torch.int8)
+    onehot[:, :classes * length] = _onehot_of(obs, length, classes).to(torch.int8)
     table = torch.randint(0, 2, (depth, cols), dtype=torch.int8, device=obs.device)
     return cuda_median_ms(lambda: torch._int_mm(onehot, table), reps)
 
@@ -257,8 +274,9 @@ def compare(name: str, got, want, where: str, fields=("best", "idx", "next")) ->
 
 def kernel_runs():
     """name -> (kernel call, plain call), each ``f(obs, state)`` on a state
-    built for that kernel.  The wrappers have their own counters: these
-    launches are not a main path's."""
+    built for that kernel (bit2 or nib4 rows, by the state's classes).  The
+    wrappers have their own counters: these launches are not a main
+    path's."""
     from fqtk_tpu_torch.ops.hopper_matcher import (
         ColmergeTop2,
         TileTop2,
@@ -269,12 +287,12 @@ def kernel_runs():
     colm, tile = ColmergeTop2(), TileTop2()
     return {
         "colmerge_top2": (
-            lambda o, st: colm(o, st.table, st.k, st.length),
-            lambda o, st: colmerge_top2_reference(o, st.table, st.k, st.length),
+            lambda o, st: colm(o, st.table, st.k, st.length, st.classes),
+            lambda o, st: colmerge_top2_reference(o, st.table, st.k, st.length, st.classes),
         ),
         "tile_top2": (
-            lambda o, st: tile(o, st.table, st.k, st.length),
-            lambda o, st: tile_top2_reference(o, st.table, st.k, st.length),
+            lambda o, st: tile(o, st.table, st.k, st.length, st.classes),
+            lambda o, st: tile_top2_reference(o, st.table, st.k, st.length, st.classes),
         ),
     }
 
@@ -282,17 +300,17 @@ def kernel_runs():
 def shape_row(k: int, length: int, obs: torch.Tensor, state, ms: float,
               plain_ms: float) -> dict:
     """One measured shape of ``colmerge_top2`` / ``tile_top2``: its times,
-    its bound over the function's K columns at the function's depth 4L (the
-    table's pad columns and pad depth are the kernel's choice and do not
-    count), and the library yardstick (counts only, on one K chunk, scaled
-    to K)."""
-    b = obs.shape[0]
-    bound_ms, bound_by = top2_bound(k, 4 * length, b, obs.shape[1], k * 4 * length)
+    its bound over the function's K columns at the function's depth
+    ``classes * L`` (the table's pad columns and pad depth are the kernel's
+    choice and do not count), and the library yardstick (counts only, on one
+    K chunk, scaled to K)."""
+    b, wl = obs.shape[0], state.classes * length
+    bound_ms, bound_by = top2_bound(k, wl, b, obs.shape[1], k * wl)
     # one K chunk whose [B, cols] int32 counts stay within 1 GiB
     cols = max(128, min(state.k_pad, (1 << 28) // b // 128 * 128))
-    library_ms = int_mm_counts_ms(obs, length, cols) * (k / cols)
-    return dict(k=k, length=length, b=b, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    library_ms = int_mm_counts_ms(obs, length, cols, classes=state.classes) * (k / cols)
+    return dict(k=k, length=length, b=b, classes=state.classes, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_kernels(card: str) -> dict:
@@ -335,6 +353,99 @@ def phase_kernels(card: str) -> dict:
         del obs
         torch.cuda.empty_cache()
     return dict(shapes=shapes, max_abs_err=max_err)
+
+
+def mask_case(k: int, length: int, b: int, seed: int):
+    """:func:`kernel_case`'s whitelist and reads as raw bytes, with IUPAC
+    reads: a twentieth get an N (one in fifty rows two or three, at the
+    no-call gate's edge of ``max_mismatches + max_ns`` = 1 + 1), one in
+    thirty an R, one in nine are lower case.  Returns ``(es, obs_bytes,
+    nib4)``."""
+    from fqtk_tpu_torch.core.encoding import ENCODE_LUT
+    from fqtk_tpu_torch.ops.device_encoding import pack_nib4
+
+    es, packed = kernel_case(k, length, b, seed)
+    rng = np.random.default_rng(seed + 1)
+    codes = (packed[:, np.arange(length) // 4] >> (2 * (np.arange(length) % 4))) & 3
+    obs = ACGT[codes]
+    for frac, n_pos, byte in ((20, 1, "N"), (50, 2, "N"), (50, 3, "N"), (30, 1, "R")):
+        rows = np.nonzero(rng.integers(0, frac, size=b) == 0)[0]
+        for j in range(n_pos):
+            obs[rows, (rng.integers(0, length, size=len(rows)) + j) % length] = ord(byte)
+    obs[rng.integers(0, 9, size=b) == 0] |= 0x20
+    nib4 = pack_nib4(torch.from_numpy(ENCODE_LUT[obs])).numpy()
+    return es, obs, nib4
+
+
+def spec_rows(obs: np.ndarray, es, mm: int, delta: int):
+    """The NumPy spec ``assign_batch_np`` on ``obs``'s rows, in blocks that
+    keep its ``[rows, K, L]`` intermediate near 64 MB; ``assigned`` K for
+    unmatched."""
+    from fqtk_tpu_torch.ops.matcher import assign_batch_np
+
+    step = max(1, (1 << 26) // (es.count * es.length))
+    parts = [assign_batch_np(obs[r:r + step], es, mm, delta) for r in range(0, len(obs), step)]
+    idx, best, nxt = (np.concatenate(f) for f in zip(*parts))
+    return np.where(idx < 0, es.count, idx), best, nxt
+
+
+def check_gated(name: str, got, want, where: str) -> None:
+    """``(assigned, best, next)`` on the card against the spec's (numpy)."""
+    for field, g, w in zip(("assigned", "best", "next"), got, want):
+        g = g.cpu().numpy().astype(np.int64)[: len(w)]
+        if not np.array_equal(g, w):
+            bad = int(np.nonzero(g != w)[0][0])
+            raise AssertionError(f"{name} at {where}: {field}[{bad}] {g[bad]}, spec {w[bad]}")
+
+
+def phase_mask_inputs(card: str) -> dict:
+    """The 16-class input through ``make_hopper_assign_fn`` (raw bytes and
+    nib4) at :data:`MASK_SHAPES`: per call one ``colmerge_top2`` launch and
+    no plain call (counts from 0 in each fresh function), its gated result
+    equal to the spec on the first :data:`MASK_SPEC_ROWS` rows, the kernel's
+    (best, idx, next) equal to the plain version's on all rows; then kernel
+    and plain times on the nib4 rows."""
+    from fqtk_tpu_torch.ops.hopper_matcher import make_hopper_assign_fn
+
+    kernel, plain = kernel_runs()["colmerge_top2"]
+    shapes, launches, max_err = [], 0, 0
+    for i, (k, length, b) in enumerate(MASK_SHAPES):
+        es, obs_bytes, nib4 = mask_case(k, length, b, seed=1400 + i)
+        want = spec_rows(obs_bytes[:MASK_SPEC_ROWS], es, 1, 2)
+        for form, rows in (("bytes", obs_bytes), ("nib4", nib4)):
+            fn = make_hopper_assign_fn(es, 1, 2, device="cuda", packed2=False,
+                                       packed_masks=form == "nib4")
+            if fn.scheme != "colmerge_top2" or fn.state.classes != 16:
+                raise AssertionError(f"K={k}: {fn.scheme}, {fn.state.classes} classes")
+            got = fn(rows)
+            torch.cuda.synchronize()
+            counts = {n: (kern.launches, kern.plain_calls) for n, kern in fn.kernels.items()}
+            if counts != {"colmerge_top2": (1, 0), "tile_top2": (0, 0)}:
+                raise AssertionError(f"16-class {form} call at K={k}: kernel counts {counts}")
+            launches += 1
+            check_gated(f"16-class {form}", got, want, f"K={k} L={length} B={b}")
+            st = fn.state
+        o = torch.from_numpy(nib4).cuda()
+        for n in (b, b - 37):
+            oo = o[:n].contiguous()
+            err = compare("colmerge_top2 (16 classes)", kernel(oo, st), plain(oo, st),
+                          f"K={k} L={length} B={n}")
+            max_err = max(max_err, err)
+        reps = 20 if k <= 1000 else 5
+        ms = cuda_median_ms(lambda: kernel(o, st), reps)
+        plain_ms = cuda_median_ms(lambda: plain(o, st), reps)
+        row = shape_row(k, length, o, st, ms, plain_ms)
+        shapes.append(row)
+        log(f"[kernels] 16 classes, K={k} L={length} B={b}: raw bytes and nib4 through "
+            f"make_hopper_assign_fn, one colmerge_top2 launch each, 0 plain calls, equal to "
+            f"assign_batch_np ({MASK_SPEC_ROWS} rows) and the plain version; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}; {card}); bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({100 * row['bound_ms'] / ms:.1f}% reached); torch._int_mm, counts only, "
+            f"{row['library_ms']:.4f} ms")
+        del o, st, fn
+        torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, max_abs_err=max_err)
 
 
 def long_barcode_route(card: str) -> float:
@@ -548,6 +659,7 @@ SC_KERNEL_B = 16_384
 SC_WINDOW = 131_072  # one production window (DEFAULT_BATCH_SIZE)
 SC_CELLS = 8_000
 SC_ORACLE_ROWS = 1_024  # the NumPy spec's rows if the host matcher refuses
+SC_SPEC_ROWS = 16  # the NumPy spec's rows of the 16-class call
 
 
 def single_cell_whitelist(seed: int):
@@ -725,8 +837,65 @@ def phase_single_cell(card: str) -> dict:
         f"{oracle}'s ({n} rows); {matched:.4f} matched")
     del fn, st, bucket
     torch.cuda.empty_cache()
+    mask = single_cell_masks(card, es, codes, rng)
     return dict(launches=launches, shapes=shapes, max_abs_err=err, oracle=oracle,
-                call_ms=call_s * 1e3)
+                call_ms=call_s * 1e3, mask=mask)
+
+
+def single_cell_masks(card: str, es, codes: np.ndarray, rng) -> dict:
+    """One raw-byte call at B = ``SC_KERNEL_B`` through the 16-class input
+    of ``make_hopper_assign_fn`` on the single-cell list: ``tile_top2``
+    launched once, no plain call; the kernel's (best, idx, next) on the
+    call's nib4 rows equal to the plain version's, and the gated result
+    equal to the NumPy spec on the first ``SC_SPEC_ROWS`` rows (N and
+    lower-case reads among them)."""
+    from fqtk_tpu_torch.core.encoding import ENCODE_LUT
+    from fqtk_tpu_torch.ops.device_encoding import pack_nib4
+    from fqtk_tpu_torch.ops.hopper_matcher import make_hopper_assign_fn
+
+    t0 = time.perf_counter()
+    fn = make_hopper_assign_fn(es, 1, 2, device="cuda", packed2=False)
+    torch.cuda.synchronize()
+    st = fn.state
+    if fn.scheme != "tile_top2" or st.classes != 16:
+        raise AssertionError(f"16-class single-cell state: {fn.scheme}, {st.classes} classes")
+    log(f"[single-cell] 16-class state built in {time.perf_counter() - t0:.2f} s: table "
+        f"{tuple(st.table.shape)} ({st.table.numel() / 1e6:.0f} MB)")
+    obs = ACGT[single_cell_reads(rng, codes, SC_KERNEL_B)]
+    n_rows = rng.integers(0, 20, size=SC_KERNEL_B) == 0
+    n_rows[[1, 3, 5]] = True
+    obs[n_rows, rng.integers(0, SC_L, size=int(n_rows.sum()))] = ord("N")
+    obs[3, (np.arange(2) + 7)] = ord("N")  # two no-calls: over the budget of 1
+    obs[2::9] |= 0x20
+    got = fn(obs)
+    torch.cuda.synchronize()
+    counts = {n: (kern.launches, kern.plain_calls) for n, kern in fn.kernels.items()}
+    if counts != {"colmerge_top2": (0, 0), "tile_top2": (1, 0)}:
+        raise AssertionError(f"16-class single-cell call: kernel counts {counts}")
+    check_gated("16-class single-cell", got, spec_rows(obs[:SC_SPEC_ROWS], es, 1, 2),
+                f"K={SC_K} L={SC_L}, first {SC_SPEC_ROWS} rows")
+    kernel, plain = kernel_runs()["tile_top2"]
+    nib4 = pack_nib4(torch.from_numpy(ENCODE_LUT[obs])).cuda()
+    t0 = time.perf_counter()
+    want = plain(nib4, st)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare("tile_top2 (16 classes)", kernel(nib4, st), want,
+                  f"K={SC_K} L={SC_L} B={SC_KERNEL_B}")
+    for field, g, w in zip(("best", "next"), (got[1], got[2]), (want[0], want[2])):
+        if not torch.equal(g, w):
+            raise AssertionError(f"16-class single-cell call: {field} differs from plain")
+    ms = cuda_median_ms(lambda: kernel(nib4, st), 3)
+    row = shape_row(SC_K, SC_L, nib4, st, ms, plain_ms)
+    log(f"[single-cell] 16 classes, raw bytes, K={SC_K} L={SC_L} B={SC_KERNEL_B}: one "
+        f"tile_top2 launch, 0 plain calls, equal to the plain version and to "
+        f"assign_batch_np ({SC_SPEC_ROWS} rows); kernel {ms:.4f} ms (median of 3), plain "
+        f"{plain_ms:.1f} ms (one call, host clock) ({card}); bound {row['bound_ms']:.4f} ms "
+        f"by {row['bound_by']} ({100 * row['bound_ms'] / ms:.1f}% reached); torch._int_mm, "
+        f"counts only, {row['library_ms']:.4f} ms")
+    del fn, st, nib4
+    torch.cuda.empty_cache()
+    return dict(launches=counts["tile_top2"][0], shapes=[row], max_abs_err=err)
 
 
 # --------------------------------------------------------------------------
@@ -737,7 +906,7 @@ LAB_K, LAB_L = 737_280, 16  # the lab's defaults (FQTK_LAB_K, FQTK_LAB_L)
 LAB_B = 16_384
 LAB_KERNEL_NAMES = ("mma_probe", "lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
 #: the lab kernels on the tensor-core engine: no spill, no serialized wgmma
-ENGINE_LAB_KERNELS = ("lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
+ENGINE_LAB_KERNELS = LAB_KERNEL_NAMES
 
 
 def phase_lab(card: str) -> dict:
@@ -867,6 +1036,7 @@ def main() -> int:
     # phase 3: kernels against plain
     t0 = time.perf_counter()
     kr = phase_kernels(card)
+    mr = phase_mask_inputs(card)
     long_ms = long_barcode_route(card)
     log(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -916,6 +1086,15 @@ def main() -> int:
              max_abs_err=max(kr["max_abs_err"]["tile_top2"], sc["max_abs_err"]),
              **{key: window_shape[key] for key in keys},
              shapes=kr["shapes"]["tile_top2"] + sc["shapes"]),
+        dict(name="colmerge_top2", classes=16, launches=mr["launches"],
+             launches_per="phase 3's 16-class calls (raw bytes and nib4, K 96 and 8,192)",
+             max_abs_err=mr["max_abs_err"], **{key: mr["shapes"][0][key] for key in keys},
+             shapes=mr["shapes"]),
+        dict(name="tile_top2", classes=16, launches=sc["mask"]["launches"],
+             launches_per="phase 5's 16-class call (raw bytes, B 16,384)",
+             max_abs_err=sc["mask"]["max_abs_err"],
+             **{key: sc["mask"]["shapes"][0][key] for key in keys},
+             shapes=sc["mask"]["shapes"]),
     ]
     for kname in LAB_KERNEL_NAMES:
         runs = [r for r in lr["per"].values() if r["kernel"] == kname]
@@ -929,7 +1108,8 @@ def main() -> int:
                          variant=runs[0]["label"], variants=runs))
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][0],
-         "replaces": KERNELS[r["name"]][1], **{k: v for k, v in r.items() if k != "name"}}
+         "replaces": KERNELS[r["name"]][1], "classes": r.get("classes", 4),
+         **{k: v for k, v in r.items() if k not in ("name", "classes")}}
         for r in rows
     ]}))
     print(card)

@@ -18,7 +18,9 @@
 //   m2 = min(min(m2, o2), max(m1, o1)); m1 = min(m1, o1).
 //
 // Inputs (csrc/mma_count.cuh has the layouts): obs [B, ceil(L/4)] uint8
-// bit2 rows; table: the [K_pad, KP] int8 mismatch table in the tiled order
+// bit2 rows (classes = 4), or [B, ceil(L/2)] nib4 masks (classes = 16: the
+// counterpart of the TPU kernel's 16-class input, packed_masks=True and its
+// raw-byte default); table: the [K_pad, KP] int8 mismatch table in the tiled order
 // the product reads, packed once when the state is built (the previous
 // design re-packed every 256-column tile of a [4L, K_pad] table in every
 // CTA: 59 ms per call at K = 737,280 whatever B).
@@ -87,12 +89,13 @@ colmerge_top2_pass2(const int32_t* __restrict__ partial, int64_t b,
 
 extern "C" int fqtk_colmerge_top2(const void* obs, int64_t b, int width,
                                   const void* table, int64_t k_pad, int kp,
-                                  int64_t k, int length, int n_chunks,
-                                  int64_t cols_per_cta, void* partial,
+                                  int64_t k, int length, int classes,
+                                  int n_chunks, int64_t cols_per_cta,
+                                  void* partial,
                                   void* best, void* idx, void* next,
                                   void* stream) {
-  const int bad = check_args(b, width, table, k_pad, kp, k, length, n_chunks,
-                             cols_per_cta);
+  const int bad = check_args(b, width, table, k_pad, kp, k, length, classes,
+                             n_chunks, cols_per_cta);
   if (bad != 0) return bad;
   if (n_chunks > 1 && partial == nullptr) return -1;
   int shift = 1;
@@ -107,7 +110,7 @@ extern "C" int fqtk_colmerge_top2(const void* obs, int64_t b, int width,
   const Pass1Args args{static_cast<const uint8_t*>(obs), b, width, length,
                        static_cast<const uint8_t*>(table), kp, k, cols_per_cta,
                        (b + kRows - 1) / kRows, n_chunks, shift, pp, pb, pi, pn};
-  const cudaError_t e = launch_pass1<ColmergeScheme>(args, s);
+  const cudaError_t e = launch_pass1<ColmergeScheme>(args, classes, s);
   if (e != cudaSuccess || n_chunks == 1) return (int)e;
   colmerge_top2_pass2<<<(unsigned)((b + 255) / 256), 256, 0, s>>>(
       pp, b, n_chunks, shift, pb, pi, pn);

@@ -4,10 +4,8 @@
 //   group_top2.cu (#6) and clamp8_top2.cu (#7): the running (smallest,
 //   second smallest) emit keys of a row (Top2Keys), the fold of a quad's
 //   keys and the row's partial per slice (emit_top2), and pass 2, which folds
-//   the slices of a row (top2_fold);
-// * csrc/mma_probe.cu (#3): its argument checks and the one-hot bit words of
-//   a row (check_args, load_onehot).
-// The walk of the kernels that count on the tensor cores (#4-#7) is
+//   the slices of a row (top2_fold).
+// The walk of the kernels that count on the tensor cores (#3-#7) is
 // csrc/lab_mma.cuh.
 //
 // Every key of a row's emit is unique (it ends in the column id), so the
@@ -24,37 +22,6 @@ namespace lab {
 constexpr int kThreads = 256;        // threads per CTA
 constexpr int32_t kMasked = 1 << 30; // the emit's masked-key sentinel
 constexpr int32_t kKeyMax = 0x7fffffff;
-
-// 0, or a negative code for arguments the kernels do not take.  `nw`: the
-// row's one-hot bit words, ceil(4L / 32); tile_k a multiple of 32.
-inline int check_args(int64_t b, int width, const void* table, int nw,
-                      int length, int tile_k, int n_k_tiles,
-                      int64_t* n_row_tiles) {
-  if (b <= 0 || length < 1 || length > 32 || width != (length + 3) / 4 ||
-      nw != (4 * length + 31) / 32 || tile_k < 32 || tile_k % 32 != 0 ||
-      n_k_tiles < 1 || (int64_t)n_k_tiles * tile_k > 0x7fffffffLL)
-    return -1;
-  if ((reinterpret_cast<uintptr_t>(table) & 15u) != 0) return -2;
-  *n_row_tiles = (b + kThreads - 1) / kThreads;
-  return 0;
-}
-
-// The row's bit2 codes as the class-major one-hot bitmask.  The word is
-// selected by compare so the array stays in registers.
-template <int NW>
-__device__ __forceinline__ void load_onehot(const uint8_t* __restrict__ obs,
-                                            int64_t row, int width,
-                                            int length, uint32_t (&oh)[NW]) {
-#pragma unroll
-  for (int w = 0; w < NW; ++w) oh[w] = 0u;
-  const uint8_t* o = obs + row * (int64_t)width;
-  for (int l = 0; l < length; ++l) {
-    const int bit = ((o[l >> 2] >> ((l & 3) * 2)) & 3) * length + l;
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      oh[w] |= ((bit >> 5) == w) ? (1u << (bit & 31)) : 0u;
-  }
-}
 
 // Running (smallest, second smallest capped at kMasked) of a row's emit
 // keys, and the smallest second-stream count: what the TPU emit computes

@@ -1,7 +1,7 @@
 // The kernel lab's walk on the tensor-core counting engine of
-// csrc/mma_count.cuh, for Hopper (sm_90a): what csrc/lab_probe.cu (TPU kernel
-// #4), csrc/clamp16_top2.cu (#5), csrc/group_top2.cu (#6) and
-// csrc/clamp8_top2.cu (#7) share.
+// csrc/mma_count.cuh, for Hopper (sm_90a): what csrc/mma_probe.cu (TPU
+// kernel #3), csrc/lab_probe.cu (#4), csrc/clamp16_top2.cu (#5),
+// csrc/group_top2.cu (#6) and csrc/clamp8_top2.cu (#7) share.
 //
 // The TPU bodies of scripts/kernel_lab.py walk the K tiles of the lab's table
 // in order (the grid's second axis, pl.program_id(1)) and keep a state per
@@ -54,7 +54,8 @@
 //
 // Pass 1 ends with the body's emit over the thread's positions, folds the
 // four threads of a quad (they hold disjoint positions of the same rows) and
-// writes one partial per (row, slice); pass 2 folds the slices of a row.
+// writes one partial per (row, slice); pass 2 folds the slices of a row
+// (mma_probe's output is one column of slice 0: those CTAs write it).
 
 #pragma once
 

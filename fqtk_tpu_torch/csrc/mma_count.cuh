@@ -8,19 +8,28 @@
 //
 // Function.  For read row b and whitelist column k < K,
 //   count[b, k] = sum_j onehot[b, j] * table[k, j]
-// where onehot[b, c*L + l] = (code of row b at position l == c) and
-// table[k, c*L + l] = 1 iff code c mismatches barcode k at position l.  Per
+// where, for bit2 input (4 classes, class-major), onehot[b, c*L + l] = (code
+// of row b at position l == c) and table[k, c*L + l] = 1 iff code c
+// mismatches barcode k at position l; for nib4 input (16 classes,
+// position-major), onehot[b, l*16 + c] = (mask of row b at position l == c)
+// and table[k, l*16 + c] = 1 iff mask value c has a bit outside barcode k's
+// mask at l.  At most one class per position is set, so counts <= L.  Per
 // row the engine keeps m1 < m2, the two smallest keys
 //   key = count << shift | (column - col_base)
 // over the CTA's column range; keys are unique, so the smallest key is (best,
 // FIRST column reaching it) and the count of the second is `next`.
 //
 // Inputs
-//   obs   [B, W] uint8, W = ceil(L/4): four 2-bit codes per byte, lowest bit
-//         pair first (the native engine's "bit2").
+//   obs   [B, W] uint8, one of two forms (CLASSES):
+//         4: W = ceil(L/4), four 2-bit codes per byte, lowest bit pair first
+//            (the native engine's "bit2");
+//         16: W = ceil(L/2), two 4-bit IUPAC masks per byte, low nibble the
+//            even position ("nib4"; raw bytes are converted to it before
+//            the launch).
 //   table int8, K_pad * KP bytes: the [K_pad, KP] mismatch table (a column's
-//         4L entries, zero-padded to the depth KP = 32 * ceil(4L/32) up to
-//         128, a multiple of 128 above) stored in the order the product
+//         CLASSES * L entries, zero-padded to the depth KP = 32 *
+//         ceil(CLASSES * L / 32) up to 128, a multiple of 128 above;
+//         depth_of) stored in the order the product
 //         reads it from shared memory, so that a stage is one contiguous
 //         copy.  As an array: [K_pad/128][KP/SB][16][SB/16][8][16] bytes,
 //         i.e. per sub-tile of 128 columns and depth slice of SB bytes (SB =
@@ -77,7 +86,7 @@
 // fragments, the product loop over a source of table blocks, and a visitor
 // of each sub-tile's counts.  Kernels #1 and #2 use them through count_top2
 // (consecutive 256-column stages, the running top-2); the kernel lab's
-// lab_probe and clamp8_top2 (TPU kernels #4 and #7) through csrc/lab_mma.cuh.
+// kernels (TPU kernels #3-#7) through csrc/lab_mma.cuh.
 // The header also holds what the two top-2 kernels' first passes share: the
 // pass-1 kernel over a (row tile, chunk) grid, which differs per scheme only
 // in the key's column base and in what a row writes (a `Scheme`), its launch
@@ -301,6 +310,39 @@ __device__ __forceinline__ void onehot_words(const uint8_t* __restrict__ o,
   }
 }
 
+// The 16-class input.  The table's depth is position-major (l*16 + c), so
+// the k32 step over positions 2i and 2i + 1 needs nib4 byte i alone: depth
+// bytes t*4 .. t*4 + 3 of the step are classes 4t .. 4t + 3 of position 2i,
+// bytes 16 + t*4 .. those of position 2i + 1 (a_frag's layout).  A 128-byte
+// depth slice is 8 positions: one 32-bit word of the nib4 row.  The depth
+// past 16L is zero in the table, so what A holds there never counts.
+
+// The int8 one-hot bytes of classes 4t .. 4t + 3 for mask m (0 .. 15).
+__device__ __forceinline__ uint32_t class_bytes(uint32_t m, int t) {
+  return (m >> 2) == (uint32_t)t ? 1u << (8u * (m & 3u)) : 0u;
+}
+
+// The A fragment of the k32 step over the two positions of nib4 bytes lo
+// (row g) and hi (row g + 8); only their low 8 bits are read.
+__device__ __forceinline__ void a_frag16(uint32_t (&a)[4], uint32_t lo,
+                                         uint32_t hi, int t) {
+  a[0] = class_bytes(lo & 15u, t);
+  a[1] = class_bytes(hi & 15u, t);
+  a[2] = class_bytes((lo >> 4) & 15u, t);
+  a[3] = class_bytes((hi >> 4) & 15u, t);
+}
+
+// Bytes 4w .. 4w + 3 of a nib4 row of `width` bytes as one word, lowest
+// first; bytes past the row are 0.
+__device__ __forceinline__ uint32_t nib4_word(const uint8_t* __restrict__ o,
+                                              int width, int w) {
+  uint32_t word = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * w + i < width) word |= (uint32_t)o[4 * w + i] << (8 * i);
+  return word;
+}
+
 // --- the running top-2 -----------------------------------------------------
 
 // The two smallest keys of the thread's two rows over its columns.
@@ -390,13 +432,23 @@ struct RowTop2 {
 // (csrc/lab_mma.cuh) walk the table differently and visit with their own
 // stream updates.
 
-// The A fragments of the whole depth KP = 32 * NK1 (at most 128: L <= 32)
-// for rows r_lo and r_hi = r_lo + 8; a row >= b is all zero.
-template <int NK1>
+// The A fragments of the whole depth KP = 32 * NK1 (at most 128: L <= 32 at
+// 4 classes, L <= 8 at 16) for rows r_lo and r_hi = r_lo + 8.  A row >= b
+// reads as codes or masks of 0; its counts are never written.
+template <int NK1, int CLASSES = 4>
 __device__ __forceinline__ void load_a(const uint8_t* __restrict__ obs,
                                        int64_t b, int width, int length,
                                        int64_t r_lo, int64_t r_hi, int t,
                                        uint32_t (&a)[NK1][4]) {
+  if constexpr (CLASSES == 16) {
+    // one nib4 byte per k32 step, NK1 <= 4 bytes
+    const uint32_t lo = r_lo < b ? nib4_word(obs + r_lo * width, width, 0) : 0u;
+    const uint32_t hi = r_hi < b ? nib4_word(obs + r_hi * width, width, 0) : 0u;
+#pragma unroll
+    for (int ks = 0; ks < NK1; ++ks)
+      a_frag16(a[ks], lo >> (8 * ks), hi >> (8 * ks), t);
+    return;
+  }
   uint32_t lo[NK1], hi[NK1];
 #pragma unroll
   for (int ks = 0; ks < NK1; ++ks) lo[ks] = hi[ks] = 0u;
@@ -509,9 +561,11 @@ struct Top2Visitor {
 //
 // NK1 k32 steps per depth slice; MULTI = false: the whole depth (KP = 32 *
 // NK1) is one slice, A stays in registers.  MULTI = true (NK1 = 4): KP is a
-// multiple of 128, the depth is walked in slices of 128 bytes with the
-// one-hot bit words in shared memory.
-template <int NK1, bool MULTI>
+// multiple of 128, the depth is walked in slices of 128 bytes with each
+// row's A source in shared memory at kBitStride words a row: at 4 classes
+// the one-hot bit words (four a slice), at 16 the nib4 words (one a slice).
+// Either is at most 32 words at L <= 255 (KP <= 1,024 or 4,096).
+template <int NK1, bool MULTI, int CLASSES>
 __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
                                            int64_t b, int width, int length,
                                            const uint8_t* __restrict__ table,
@@ -524,7 +578,7 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
   if constexpr (!MULTI) {
     const int64_t r_lo = row0 + warp * 16 + g;
     uint32_t a[NK1][4];
-    load_a<NK1>(obs, b, width, length, r_lo, r_lo + 8, t, a);
+    load_a<NK1, CLASSES>(obs, b, width, length, r_lo, r_lo + 8, t, a);
     const ColumnStages src{table + c_begin * kp, kp, (int)(c_end - c_begin)};
     Top2Visitor vis{top, c_begin, t};
     product_loop<NK1, kSub, kStageSubs, ring_stages(NK1)>(a, src, smem, vis);
@@ -538,13 +592,17 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
     if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
     int32_t acc[64];
     const int n_slices = kp / kSliceBytes;
-    const int nw = n_slices * NK1;  // one-hot bit words per row, <= 32
+    // words per row, <= 32: one-hot bit words, or nib4 words
+    const int nw = CLASSES == 16 ? n_slices : n_slices * NK1;
     uint32_t* bits =
         reinterpret_cast<uint32_t*>(smem + kSliceStages * kSubBytes);
     for (int q = threadIdx.x; q < kRows * nw; q += kThreads) {
       const int r = q / nw, w = q - r * nw;
-      bits[r * kBitStride + w] =
-          row0 + r < b ? onehot_word(obs + (row0 + r) * width, length, w) : 0u;
+      const uint8_t* o = obs + (row0 + r) * width;
+      if constexpr (CLASSES == 16)
+        bits[r * kBitStride + w] = row0 + r < b ? nib4_word(o, width, w) : 0u;
+      else
+        bits[r * kBitStride + w] = row0 + r < b ? onehot_word(o, length, w) : 0u;
     }
     __syncthreads();  // the mbarriers are initialized, the bit words written
     // unit u = (sub-tile, depth slice), slices innermost: units are
@@ -571,8 +629,12 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
       const uint32_t st = sbase + slot * kSubBytes;
       uint32_t a[NK1][4];
 #pragma unroll
-      for (int ks = 0; ks < NK1; ++ks)
-        a_frag(a[ks], lo_bits[sl * NK1 + ks], hi_bits[sl * NK1 + ks], t);
+      for (int ks = 0; ks < NK1; ++ks) {
+        if constexpr (CLASSES == 16)
+          a_frag16(a[ks], lo_bits[sl] >> (8 * ks), hi_bits[sl] >> (8 * ks), t);
+        else
+          a_frag(a[ks], lo_bits[sl * NK1 + ks], hi_bits[sl * NK1 + ks], t);
+      }
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < NK1; ++ks)
@@ -586,9 +648,10 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
   top.fold_quad();
 }
 
-// The depth KP the table carries for barcode length `length`.
-inline int depth_of(int length) {
-  const int d = (4 * length + 31) / 32 * 32;
+// The depth KP the table carries for barcode length `length` at `classes`
+// one-hot classes per position.
+inline int depth_of(int length, int classes) {
+  const int d = (classes * length + 31) / 32 * 32;
   return d <= 128 ? d : (d + 127) / 128 * 128;
 }
 
@@ -611,8 +674,8 @@ struct Pass1Args {
 // blockIdx runs over the row tiles of one chunk first, so the CTAs in flight
 // walk the same columns.  Scheme::kLocalKeys: keys hold the column inside
 // the chunk (else the global column); Scheme::emit(args, chunk, row, m1, m2)
-// writes a row's pair.
-template <class Scheme, int NK1, bool MULTI>
+// writes a row's pair.  CLASSES: the input form (4 bit2, 16 nib4).
+template <class Scheme, int NK1, bool MULTI, int CLASSES>
 __global__ void __launch_bounds__(kThreads, 2) top2_pass1(const Pass1Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int64_t row_tile = blockIdx.x % a.n_row_tiles;
@@ -623,8 +686,8 @@ __global__ void __launch_bounds__(kThreads, 2) top2_pass1(const Pass1Args a) {
   const int64_t row0 = row_tile * kRows;
 
   RowTop2 top(a.shift, Scheme::kLocalKeys ? c_begin : 0, a.k);
-  count_top2<NK1, MULTI>(a.obs, a.b, a.width, a.length, a.table, a.kp, c_begin,
-                         c_end, row0, smem, top);
+  count_top2<NK1, MULTI, CLASSES>(a.obs, a.b, a.width, a.length, a.table,
+                                  a.kp, c_begin, c_end, row0, smem, top);
 
   const int lane = threadIdx.x & 31;
   if ((lane & 3) != 0) return;
@@ -635,10 +698,10 @@ __global__ void __launch_bounds__(kThreads, 2) top2_pass1(const Pass1Args a) {
   }
 }
 
-template <class Scheme, int NK1, bool MULTI>
+template <class Scheme, int NK1, bool MULTI, int CLASSES>
 cudaError_t launch_pass1_at(const Pass1Args& a, cudaStream_t s) {
   constexpr int kSmem = smem_bytes(NK1, MULTI);
-  auto kern = top2_pass1<Scheme, NK1, MULTI>;
+  auto kern = top2_pass1<Scheme, NK1, MULTI, CLASSES>;
   if (kSmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -648,26 +711,34 @@ cudaError_t launch_pass1_at(const Pass1Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Pass 1 at the instantiation the table's depth asks for.
-template <class Scheme>
-cudaError_t launch_pass1(const Pass1Args& a, cudaStream_t s) {
+template <class Scheme, int CLASSES>
+cudaError_t launch_pass1_depth(const Pass1Args& a, cudaStream_t s) {
   switch (a.kp) {
-    case 32: return launch_pass1_at<Scheme, 1, false>(a, s);
-    case 64: return launch_pass1_at<Scheme, 2, false>(a, s);
-    case 96: return launch_pass1_at<Scheme, 3, false>(a, s);
-    case 128: return launch_pass1_at<Scheme, 4, false>(a, s);
-    default: return launch_pass1_at<Scheme, 4, true>(a, s);
+    case 32: return launch_pass1_at<Scheme, 1, false, CLASSES>(a, s);
+    case 64: return launch_pass1_at<Scheme, 2, false, CLASSES>(a, s);
+    case 96: return launch_pass1_at<Scheme, 3, false, CLASSES>(a, s);
+    case 128: return launch_pass1_at<Scheme, 4, false, CLASSES>(a, s);
+    default: return launch_pass1_at<Scheme, 4, true, CLASSES>(a, s);
   }
+}
+
+// Pass 1 at the instantiation the input form and the table's depth ask for.
+template <class Scheme>
+cudaError_t launch_pass1(const Pass1Args& a, int classes, cudaStream_t s) {
+  return classes == 16 ? launch_pass1_depth<Scheme, 16>(a, s)
+                       : launch_pass1_depth<Scheme, 4>(a, s);
 }
 
 // The checks both entry points make of their arguments: 0, or the negative
 // code the entry point returns (-1 a shape, -2 the table's alignment, -3 a
-// grid beyond 2^31 - 1 CTAs).
+// grid beyond 2^31 - 1 CTAs).  `classes`: 4 (bit2 rows) or 16 (nib4 rows).
 inline int check_args(int64_t b, int width, const void* table, int64_t k_pad,
-                      int kp, int64_t k, int length, int n_chunks,
+                      int kp, int64_t k, int length, int classes, int n_chunks,
                       int64_t cols_per_cta) {
-  if (b <= 0 || k < 1 || length < 1 || length > 255 ||
-      width != (length + 3) / 4 || kp != depth_of(length) || k_pad < k ||
+  if (classes != 4 && classes != 16) return -1;
+  const int row_bytes = classes == 16 ? (length + 1) / 2 : (length + 3) / 4;
+  if (b <= 0 || k < 1 || length < 1 || length > 255 || width != row_bytes ||
+      kp != depth_of(length, classes) || k_pad < k ||
       k_pad % kSub != 0 || n_chunks < 1 || cols_per_cta < kSub ||
       cols_per_cta % kSub != 0 || n_chunks * cols_per_cta < k ||
       (n_chunks - 1) * cols_per_cta >= k)

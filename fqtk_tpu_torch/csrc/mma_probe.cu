@@ -10,144 +10,89 @@
 // (lab_kernels.mma_probe_reference is the plain version).
 //
 // Type.  Hopper's tensor cores have no int4 product; the nearest is int8,
-// exact here (0/1 operands, sums <= 4L <= 128 in int32).  Each warp issues
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: A = 16 rows x 32 of the
-// one-hot (built in registers from the bit2 row, once per CTA), B = 32 x 8
-// columns of the table, read from shared memory.  The table is int8
-// [k_padded, KP] (a column's 4L entries contiguous, zero-padded to KP =
-// 32 * ceil(4L / 32)), i.e. the "col" layout of B.
+// exact here (0/1 operands, sums <= 4L <= 128 in int32).
 //
-// Dead code.  The output depends only on one column, so nvcc would drop the
-// other products and the probe would time nothing.  Every product's sums
-// are folded into a register `sink` that is stored only when the kernel
-// argument `sink_flag` (always 0 from the wrapper) says so: the full
-// B x k_padded x KP product is issued.
+// Design: a Design of csrc/lab_mma.cuh's walk, lab_pass1 (the walk, the
+// tiled table and its bulk copies are described there), like lab_probe's
+// v2_matmul: CTA = 128 rows x a slice of N = 128 column positions of every
+// K tile (tile_k / N slices, one CTA column each), one wgmma.m64nNk32.s8
+// group per K tile, two K tiles staged per CTA barrier, no stream in shared
+// memory.  The visitor keeps, in registers, the counts of column 0 of the
+// last K tile (acc[0] and acc[2]: rows g and g + 8 of the thread t == 0 of
+// slice 0), taken by a predicated select, not a branch: a divergent branch
+// between two products makes ptxas serialize them (C7520).  The output
+// needs no pass 2: slice 0's CTAs write `out` themselves, the other slices
+// write nothing.
 //
-// Design (simple first): CTA = 8 warps x 32 rows (two m16 tiles per warp) =
-// 256 rows; the grid splits the columns so that about four CTAs per SM
-// exist at any B.  A CTA stages 128 columns at a time into shared memory
-// with 16-byte loads (row stride KP + 16 bytes: the eight columns a warp's
-// B fragment reads fall in distinct banks) and, per 8-column tile, loads
-// its B fragment once (2 * NW words per thread) for its two m16 tiles'
-// 2 * NW mma.  The CTA whose columns hold the emitted column writes `out`
-// from the D fragment (thread 4g holds rows g and g + 8 of column 0).
+// Dead code.  The output depends only on one column, so nvcc could drop
+// the reads of the other counts.  The products are volatile asm and all
+// issued, and every count is folded into the registers `sink` (four
+// independent sums, so that an add does not wait for the one before it)
+// that are stored only when the kernel argument `sink_flag` (always 0 from
+// the wrapper) says so: the accumulators are read after every product, as
+// in every other lab kernel.
+//
+// What bounds it on this card: operations, 2 * B * k_padded * KP int8 at
+// 1,979 TOP/s; bytes (the rows, the table once per 128 rows from L2, 4 B
+// per row out) are far below.
 //
 // Launch contract: launches on the caller's stream, allocates nothing,
 // returns cudaGetLastError() (negative on a rejected argument).
 
-#include "lab_common.cuh"
+#include "lab_mma.cuh"
 
 namespace {
 
-using namespace lab;
+using namespace labm;
 
-constexpr int kChunk = 128;  // columns staged per pair of barriers
-
-// Bytes j0 .. j0 + 3 of the row's one-hot (j0 a multiple of 4) as one
-// register of four int8 0/1 values, lowest byte first.
-__device__ __forceinline__ uint32_t onehot_bytes(uint32_t word, int j0) {
-  const uint32_t nib = (word >> (j0 & 31)) & 0xFu;
-  return (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) |
-         ((nib & 8u) << 21);
+// `on ? v : old` by a predicated select, never a branch.
+__device__ __forceinline__ int32_t select_if(bool on, int32_t v, int32_t old) {
+  int32_t r;
+  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\nselp.b32 %0, %1, %2, p;\n}\n"
+      : "=r"(r)
+      : "r"(v), "r"(old), "r"((int)on));
+  return r;
 }
 
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct MmaDesign : TwoTileSteps {
+  static constexpr int kStreamBytes = 0;
+  static constexpr int kMaxWidth = 128;
+  struct Params {
+    int n_k_tiles, sink_flag;
+  };
 
-template <int NW>
-__global__ void __launch_bounds__(kThreads)
-mma_probe_kernel(const uint8_t* __restrict__ obs, int64_t b, int width,
-                 const uint8_t* __restrict__ table, int length,
-                 int64_t k_padded, int64_t c_emit, int64_t cols_per,
-                 int sink_flag, int32_t* __restrict__ out,
-                 int64_t n_row_tiles) {
-  constexpr int KP = 32 * NW;       // contraction depth, zero-padded
-  constexpr int kStride = KP + 16;  // shared bytes per staged column
-  constexpr int kVec = KP / 16;     // uint4 per column
-  __shared__ __align__(16) uint8_t stage[kChunk * kStride];
+  template <int N>
+  struct Visitor {
+    const Params p;
+    const int t;
+    uint32_t sink[4] = {0, 0, 0, 0};
+    int32_t col0[2] = {0, 0};  // rows g, g + 8 against the slice's column 2t
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t c_begin = (blockIdx.x / n_row_tiles) * cols_per;
-  const int64_t c_end = min(k_padded, c_begin + cols_per);
-  const int64_t r_base = (blockIdx.x % n_row_tiles) * kThreads + warp * 32;
+    __device__ Visitor(uint32_t, const Params& p_, int, int, int t_)
+        : p(p_), t(t_) {}
 
-  // A fragments of the warp's two m16 tiles: a[mt][ks] holds rows g (regs
-  // 0, 2) and g + 8 (regs 1, 3), depth ks * 32 + t * 4 (+ 16 for 2, 3)
-  uint32_t a[2][NW][4];
+    __device__ __forceinline__ void init() {}
+
+    __device__ __forceinline__ void visit(int32_t (&acc)[N / 2], int kb) {
+      fence_acc(acc);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    uint32_t lo[NW], hi[NW];
-    const int64_t r = r_base + mt * 16 + g;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) lo[w] = hi[w] = 0u;
-    if (r < b) load_onehot<NW>(obs, r, width, length, lo);
-    if (r + 8 < b) load_onehot<NW>(obs, r + 8, width, length, hi);
-#pragma unroll
-    for (int ks = 0; ks < NW; ++ks) {
-      a[mt][ks][0] = onehot_bytes(lo[ks], t * 4);
-      a[mt][ks][1] = onehot_bytes(hi[ks], t * 4);
-      a[mt][ks][2] = onehot_bytes(lo[ks], 16 + t * 4);
-      a[mt][ks][3] = onehot_bytes(hi[ks], 16 + t * 4);
+      for (int i = 0; i < N / 2; ++i) sink[i & 3] += (uint32_t)acc[i];
+      const bool last = kb == p.n_k_tiles - 1;
+      col0[0] = select_if(last, acc[0], col0[0]);
+      col0[1] = select_if(last, acc[2], col0[1]);
     }
-  }
 
-  uint32_t sink = 0;
-  for (int64_t c0 = c_begin; c0 < c_end; c0 += kChunk) {
-    const int cols = (int)min((int64_t)kChunk, c_end - c0);  // % 32 == 0
-    __syncthreads();  // the previous chunk has been consumed
-    const uint4* src = reinterpret_cast<const uint4*>(table + c0 * KP);
-    for (int q = threadIdx.x; q < cols * kVec; q += kThreads) {
-      const int col = q / kVec;
-      *reinterpret_cast<uint4*>(stage + col * kStride + (q - col * kVec) * 16) =
-          __ldg(src + q);
+    // Slice 0's thread t == 0 holds column 0 of the last K tile: it writes
+    // the rows' outputs (`a.partial` is `out`).
+    __device__ __forceinline__ void emit(const LabArgs& a, int slice,
+                                         int64_t r_lo, int64_t r_hi) {
+      if (slice != 0 || t != 0) return;
+      const int32_t folded = (int32_t)(sink[0] + sink[1] + sink[2] + sink[3]);
+      if (r_lo < a.b) a.partial[r_lo] = p.sink_flag ? folded : col0[0];
+      if (r_hi < a.b) a.partial[r_hi] = p.sink_flag ? folded : col0[1];
     }
-    __syncthreads();
-    for (int n0 = 0; n0 < cols; n0 += 32) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int nt = n0 + u * 8;
-        const uint8_t* bp = stage + (nt + g) * kStride + t * 4;
-        uint32_t bf[NW][2];
-#pragma unroll
-        for (int ks = 0; ks < NW; ++ks) {
-          bf[ks][0] = *reinterpret_cast<const uint32_t*>(bp + ks * 32);
-          bf[ks][1] = *reinterpret_cast<const uint32_t*>(bp + ks * 32 + 16);
-        }
-        const bool emit = (c0 + nt == c_emit) && t == 0;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          int32_t d[4] = {0, 0, 0, 0};
-#pragma unroll
-          for (int ks = 0; ks < NW; ++ks) mma_s8(d, a[mt][ks], bf[ks][0], bf[ks][1]);
-          sink += (uint32_t)(d[0] + d[1] + d[2] + d[3]);
-          if (emit) {
-            const int64_t r = r_base + mt * 16 + g;
-            if (r < b) out[r] = d[0];
-            if (r + 8 < b) out[r + 8] = d[2];
-          }
-        }
-      }
-    }
-  }
-  if (sink_flag && r_base + g < b) out[r_base + g] = (int32_t)sink;
-}
-
-template <int NW>
-int launch_nw(const uint8_t* obs, int64_t b, int width, const uint8_t* table,
-              int length, int64_t k_padded, int64_t c_emit, int64_t cols_per,
-              int64_t n_splits, int sink_flag, int32_t* out,
-              int64_t n_row_tiles, cudaStream_t s) {
-  mma_probe_kernel<NW><<<(unsigned)(n_row_tiles * n_splits), kThreads, 0, s>>>(
-      obs, b, width, table, length, k_padded, c_emit, cols_per, sink_flag,
-      out, n_row_tiles);
-  return (int)cudaGetLastError();
-}
+  };
+};
 
 }  // namespace
 
@@ -155,38 +100,13 @@ extern "C" int fqtk_mma_probe(const void* obs, int64_t b, int width,
                               const void* table, int kp, int length,
                               int tile_k, int n_k_tiles, int sink_flag,
                               void* out, void* stream) {
-  if (kp % 32 != 0) return -1;
-  const int nw = kp / 32;
   int64_t n_row_tiles = 0;
-  const int rc = check_args(b, width, table, nw, length, tile_k, n_k_tiles,
-                            &n_row_tiles);
+  const int rc = check_lab_args(b, width, table, kp, length, tile_k, n_k_tiles,
+                                lab_width<MmaDesign>(tile_k), &n_row_tiles);
   if (rc != 0) return rc;
-  int dev = 0, n_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  // about four CTAs per SM, each a whole number of 32-column groups
-  const int64_t k_padded = (int64_t)n_k_tiles * tile_k;
-  const int64_t groups = k_padded / 32;
-  const int64_t want = (4LL * n_sm + n_row_tiles - 1) / n_row_tiles;
-  const int64_t splits = want < 1 ? 1 : (want > groups ? groups : want);
-  const int64_t cols_per = (groups + splits - 1) / splits * 32;
-  const int64_t n_splits = (k_padded + cols_per - 1) / cols_per;
-  if (n_row_tiles * n_splits > 0x7fffffffLL) return -3;
-  const uint8_t* o = static_cast<const uint8_t*>(obs);
-  const uint8_t* w = static_cast<const uint8_t*>(table);
-  int32_t* dst = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t c_emit = k_padded - tile_k;
-#define FQTK_NW(N)                                                          \
-  return launch_nw<N>(o, b, width, w, length, k_padded, c_emit, cols_per,  \
-                      n_splits, sink_flag, dst, n_row_tiles, s)
-  switch (nw) {
-    case 1: FQTK_NW(1);
-    case 2: FQTK_NW(2);
-    case 3: FQTK_NW(3);
-    default: FQTK_NW(4);
-  }
-#undef FQTK_NW
+  const LabArgs args{static_cast<const uint8_t*>(obs), b, width, length,
+                     static_cast<const uint8_t*>(table), kp, tile_k,
+                     n_k_tiles, n_row_tiles, static_cast<int32_t*>(out)};
+  return (int)launch_lab<MmaDesign>(args, {n_k_tiles, sink_flag},
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -27,9 +27,11 @@
 // (smallest key; count of the second smallest).
 //
 // Inputs (csrc/mma_count.cuh has the layouts): obs [B, ceil(L/4)] uint8
-// bit2 rows; table: the [K_pad, KP] int8 mismatch table in the tiled order
-// the product reads, packed once when the state is built: 435 MB at K =
-// 6,794,880, L = 16.  It no longer fits the 50 MB L2, so
+// bit2 rows (classes = 4), or [B, ceil(L/2)] nib4 masks (classes = 16: the
+// TPU kernel's 16-class input, packed_masks=True and its raw-byte default);
+// table: the [K_pad, KP] int8 mismatch table in the tiled order the product
+// reads, packed once when the state is built: 435 MB at K = 6,794,880,
+// L = 16 (1.74 GB at 16 classes).  It no longer fits the 50 MB L2, so
 // blockIdx runs over the row tiles of one K tile first: the CTAs in flight
 // walk the same columns at the same time, the table comes from HBM once per
 // wave (0.13 ms at 3.35 TB/s) and from L2 once per CTA.
@@ -97,11 +99,11 @@ tile_top2_pass2(const int32_t* __restrict__ partial, int64_t b, int n_tiles,
 
 extern "C" int fqtk_tile_top2(const void* obs, int64_t b, int width,
                               const void* table, int64_t k_pad, int kp,
-                              int64_t k, int length, int n_tiles,
+                              int64_t k, int length, int classes, int n_tiles,
                               int64_t cols_per_cta, void* partial, void* best,
                               void* idx, void* next, void* stream) {
-  const int bad = check_args(b, width, table, k_pad, kp, k, length, n_tiles,
-                             cols_per_cta);
+  const int bad = check_args(b, width, table, k_pad, kp, k, length, classes,
+                             n_tiles, cols_per_cta);
   if (bad != 0) return bad;
   if (k > 0x7fffffffLL || cols_per_cta > (1 << 23) || partial == nullptr)
     return -1;
@@ -114,7 +116,7 @@ extern "C" int fqtk_tile_top2(const void* obs, int64_t b, int width,
                        static_cast<const uint8_t*>(table), kp, k, cols_per_cta,
                        (b + kRows - 1) / kRows, n_tiles, shift, pp,
                        nullptr, nullptr, nullptr};
-  const cudaError_t e = launch_pass1<TileScheme>(args, s);
+  const cudaError_t e = launch_pass1<TileScheme>(args, classes, s);
   if (e != cudaSuccess) return (int)e;
   tile_top2_pass2<<<(unsigned)((b + 255) / 256), 256, 0, s>>>(
       pp, b, n_tiles, cols_per_cta, shift, (int32_t)k,

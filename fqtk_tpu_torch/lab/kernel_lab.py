@@ -8,7 +8,7 @@ production kernel.  Every variant is a hand-written Hopper kernel
 
 - ``v0_colmerge``  — the production kernel ``colmerge_top2`` (exact top-2);
 - ``v4_int4``      — the tensor-core probe (``mma_probe``): the one-hot
-  times the table by int8 ``mma.sync``, the nearest Hopper type to the
+  times the table by int8 ``wgmma``, the nearest Hopper type to the
   TPU's int4 (exact for 0/1 operands);
 - ``v1_m1only``, ``v2_matmul``, ``v2b_store``, ``p_i8min``, ``p_i8minmax``
   — bound probes (``lab_probe``: one accumulator stream, int32 or int8);
@@ -21,8 +21,8 @@ production kernel.  Every variant is a hand-written Hopper kernel
   ``wgmma``'s s8 product accumulates in s32 only, so both run the same
   kernel.
 
-All but ``v0_colmerge`` and ``v4_int4`` count by ``wgmma`` on the engine of
-``colmerge_top2`` (``csrc/lab_mma.cuh``).
+All count by ``wgmma`` on the engine of ``colmerge_top2``, the lab's
+kernels through ``csrc/lab_mma.cuh``.
 
 Run on the card::
 
@@ -64,9 +64,7 @@ from ..ops.lab_kernels import (
     LAB_KERNELS,
     LabKernel,
     LabParams,
-    TABLE_FORMAT,
     lab_params,
-    mma_depth,
     pack_compat_bits,
     pack_lab_table_i8,
 )
@@ -156,20 +154,9 @@ def lab_table(masks: np.ndarray, tile_k: int, device: Union[str, torch.device]) 
     return pack_compat_bits(compat)
 
 
-def lab_table_i8(masks: np.ndarray, tile_k: int, device: Union[str, torch.device]) -> torch.Tensor:
-    """The lab's table for ``mma_probe``: :func:`compat_classmajor4` at
-    ``k_padded`` (unscaled), transposed to int8 ``[k_padded, KP]``: column
-    k's 4L entries, zero-padded to ``KP`` (:func:`mma_depth`)."""
-    k, length = masks.shape
-    k_padded = -(-k // tile_k) * tile_k
-    out = np.zeros((k_padded, mma_depth(length)), dtype=np.int8)
-    out[:, :4 * length] = compat_classmajor4(masks, k_padded).T
-    return torch.from_numpy(out).to(device)
-
-
 def lab_table_tiled(masks: np.ndarray, tile_k: int, device: Union[str, torch.device]) -> torch.Tensor:
-    """The lab's table for the tensor-core kernels ``lab_probe``,
-    ``clamp16_top2``, ``group_top2`` and ``clamp8_top2``:
+    """The lab's table for the tensor-core kernels ``mma_probe``,
+    ``lab_probe``, ``clamp16_top2``, ``group_top2`` and ``clamp8_top2``:
     :func:`compat_classmajor4` at ``k_padded`` (unscaled,
     pad columns all ones), tiled once by
     :func:`~fqtk_tpu_torch.ops.lab_kernels.pack_lab_table_i8` into int8
@@ -181,11 +168,9 @@ def lab_table_tiled(masks: np.ndarray, tile_k: int, device: Union[str, torch.dev
 
 def table_for(kernel: str, masks: np.ndarray, tile_k: int,
               device: Union[str, torch.device]) -> torch.Tensor:
-    """The lab table lab kernel ``kernel`` reads, by its ``TABLE_FORMAT``:
-    :func:`lab_table_i8` for ``mma_probe``, :func:`lab_table_tiled` for the
-    others."""
-    make = {"i8": lab_table_i8, "tiled": lab_table_tiled}
-    return make[TABLE_FORMAT[kernel]](masks, tile_k, device)
+    """The lab table lab kernel ``kernel`` reads: :func:`lab_table_tiled`,
+    the ``TABLE_FORMAT`` of every lab kernel."""
+    return lab_table_tiled(masks, tile_k, device)
 
 
 class LabGo:

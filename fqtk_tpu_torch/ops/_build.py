@@ -49,6 +49,7 @@ ENTRY_POINTS = {
         stem: [
             _P, _I64, _I32,  # obs, b, width
             _P, _I64, _I32, _I64, _I32,  # table, k_pad, kp, k, length
+            _I32,  # classes: 4 (bit2 rows) or 16 (nib4 rows)
             _I32, _I64,  # n_chunks, cols_per_cta
             _P,  # partial
             _P, _P, _P,  # best, idx, next

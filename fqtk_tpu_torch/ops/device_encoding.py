@@ -44,6 +44,17 @@ def unpack_nib4(obs_in: torch.Tensor, length: int) -> torch.Tensor:
     return torch.stack([x & 0xF, x >> 4], dim=-1).reshape(b, -1)[:, :length]
 
 
+def pack_nib4(masks: torch.Tensor) -> torch.Tensor:
+    """Pack ``[B, L]`` 4-bit masks (any integer type) into ``[B, ceil(L/2)]``
+    uint8, low nibble = even position: the layout :func:`unpack_nib4` reads
+    and the Hopper kernels take for 16-class input.  The pad nibble of an
+    odd L is 0."""
+    b, length = masks.shape
+    padded = torch.zeros((b, length + length % 2), dtype=torch.uint8, device=masks.device)
+    padded[:, :length] = masks.to(torch.uint8)
+    return (padded[:, 0::2] | (padded[:, 1::2] << 4)).contiguous()
+
+
 def unpack_bit2(obs_in: torch.Tensor, length: int) -> torch.Tensor:
     """Unpack ``[B, ceil(L/4)]`` 2-bit-code bytes (lowest bit pair = first
     position) to ``[B, L]`` int32 codes in 0..3.  Same bit order as

@@ -3,19 +3,24 @@
 built on them.
 
 Counterpart of :func:`fqtk_tpu.ops.pallas_matcher.make_pallas_assign_fn`
-on the demux main path (``packed2=True``, ``compact_output=True``): the
+for its three input forms (:data:`~fqtk_tpu_torch.ops.matcher.INPUT_FORMS`).
+On the demux main path (``packed2=True``, ``compact_output=True``) the
 native engine packs each read's sample barcode as 2-bit codes
 (``[B, ceil(L/4)]`` uint8, "bit2"); rows that are not pure ACGT never reach
 the device (the engine flags them and the driver resolves them on the host,
-no-call gate included).
+no-call gate included).  nib4 rows (``packed_masks=True``) and raw bytes
+(the default) go through the kernels' 16-class input: one 4-bit mask per
+position, against a position-major table of 16 classes per position, with
+the no-call gate on the device.
 
 - :func:`hopper_scheme` — which kernel runs, chosen as
   :func:`~fqtk_tpu_torch.ops.plan.plan_local_kernel` chooses the TPU
   kernel's top-2 scheme at the JAX package's single-chip tiling.
 - :func:`hopper_state_from_numpy` — the whitelist as device state: the
   table both kernels' tensor-core product reads (the int8 ``[K_pad, KP]``
-  class-major mismatch table, zero-padded in depth, tiled in the order the
-  product reads it from shared memory), packed on the device once.
+  mismatch table, class-major at 4 classes, position-major at 16,
+  zero-padded in depth, tiled in the order the product reads it from shared
+  memory), packed on the device once.
 - :func:`plan_chunks` — how a launch splits K across CTAs.
 - :func:`colmerge_top2_reference` / :func:`tile_top2_reference` — the plain
   versions (float32 one-hot matmul + top-2 merges).
@@ -36,16 +41,22 @@ import numpy as np
 import torch
 
 from ._build import load_kernel
+from .device_encoding import pack_nib4, unpack_nib4
 from .matcher import (
     _PLAIN_CHUNK_ELEMS,
-    _ROADMAP_INPUTS,
     MAX_COUNT,
     ExpectedSet,
     Top2,
+    _onehot16_f32,
     _onehot_f32,
+    check_rows,
     chunk_top2,
+    compat16_rows,
+    input_form,
+    masks_and_nocalls,
     merge_top2,
     resolve_device,
+    row_bytes,
 )
 from .plan import _compat_classmajor, plan_local_kernel
 
@@ -77,6 +88,11 @@ _PLAN = dict(tile_b=512, tile_k=2048, packed2=True, mxu_dtype="int8")
 
 SCHEMES = ("colmerge_top2", "tile_top2")
 
+#: one-hot classes per position of the kernels' two input forms: bit2 codes
+#: (4, class-major table rows ``c*L + l``) and nib4 masks (16,
+#: position-major rows ``l*16 + c``)
+CLASSES = (4, 16)
+
 #: the K tile of tile_top2's plain version (the kernel's K tile is the
 #: launch's ``cols_per_cta``, :func:`plan_chunks`; the result does not depend
 #: on the tiling)
@@ -94,32 +110,44 @@ def hopper_scheme(k: int, length: int) -> str:
 
 @dataclass(frozen=True)
 class HopperState:
-    """Device-resident whitelist for the bit2 matcher: the one table that
-    ``scheme``'s kernel and its plain version read."""
+    """Device-resident whitelist: the one table that ``scheme``'s kernel
+    and its plain version read, for input rows of ``classes`` one-hot
+    classes per position."""
 
     scheme: str
-    #: int8, the ``[k_pad, KP]`` mismatch table (entry ``c*L + l`` of column
-    #: k is 1 iff code c mismatches barcode k at position l; ``KP`` is
-    #: :func:`table_depth`, the entries from ``4L`` on are 0) in the tiled
-    #: order of :func:`pack_table_i8`; :func:`table_columns` reads it back
+    #: int8, the ``[k_pad, KP]`` mismatch table in the tiled order of
+    #: :func:`pack_table_i8` (:func:`table_columns` reads it back).  At 4
+    #: classes entry ``c*L + l`` of column k is 1 iff code c mismatches
+    #: barcode k at position l; at 16 entry ``l*16 + c`` is 1 iff mask value
+    #: c has a bit outside barcode k's mask at l (``ExpectedSet.compat``).
+    #: ``KP`` is :func:`table_depth`; the entries from ``classes * L`` on
+    #: are 0
     table: torch.Tensor
     k: int
     length: int
     max_ns_in_barcodes: int
     device: torch.device
+    classes: int = 4
 
     @property
     def k_pad(self) -> int:
         return int(self.table.shape[0]) * K_ALIGN
 
 
-def table_depth(length: int) -> int:
-    """Depth ``KP`` of the device table for barcode length ``length``: ``4L``
-    rounded up to the 32 bytes of one ``wgmma`` k-step, and above 128 to a
-    multiple of 128 (the kernels then walk the depth in slices of 128;
-    csrc/mma_count.cuh ``depth_of``)."""
-    d = -(-4 * length // 32) * 32
+def _pad_depth(wl: int) -> int:
+    """``wl`` table rows rounded up to the 32 bytes of one ``wgmma`` k-step,
+    and above 128 to a multiple of 128."""
+    d = -(-wl // 32) * 32
     return d if d <= 128 else -(-d // 128) * 128
+
+
+def table_depth(length: int, classes: int = 4) -> int:
+    """Depth ``KP`` of the device table for barcode length ``length`` at
+    ``classes`` one-hot classes per position: ``classes * L`` rounded up to
+    the 32 bytes of one ``wgmma`` k-step, and above 128 to a multiple of 128
+    (the kernels then walk the depth in slices of 128; csrc/mma_count.cuh
+    ``depth_of``)."""
+    return _pad_depth(classes * length)
 
 
 def _slice_bytes(kp: int) -> int:
@@ -128,11 +156,12 @@ def _slice_bytes(kp: int) -> int:
 
 
 def pack_table_i8(compat: torch.Tensor) -> torch.Tensor:
-    """``[4L, K_pad]`` 0/1 int8 (class-major rows ``c*L + l``; ``K_pad`` a
-    multiple of :data:`K_ALIGN`) -> the kernels' table, int8
-    ``[K_pad/128, KP/SB, 16, SB/16, 8, 16]``, contiguous.
+    """``[W*L, K_pad]`` 0/1 int8 (the mismatch table's ``W*L`` rows at W
+    classes per position; ``K_pad`` a multiple of :data:`K_ALIGN`) -> the
+    kernels' table, int8 ``[K_pad/128, KP/SB, 16, SB/16, 8, 16]``,
+    contiguous.
 
-    It is the ``[K_pad, KP]`` table (column k's ``4L`` entries in a row,
+    It is the ``[K_pad, KP]`` table (column k's ``W*L`` entries in a row,
     zero-padded to :func:`table_depth`) cut into sub-tiles of 128 columns and
     depth slices of ``SB`` bytes, each stored as ``wgmma`` reads a K-major
     B tile without swizzle: 16 groups of 8 columns, each ``SB/16`` core
@@ -143,7 +172,7 @@ def pack_table_i8(compat: torch.Tensor) -> torch.Tensor:
     wl, k_pad = compat.shape
     if k_pad % K_ALIGN:
         raise ValueError(f"K_pad={k_pad} is not a multiple of {K_ALIGN}")
-    kp = table_depth(wl // 4)
+    kp = _pad_depth(wl)
     sb = _slice_bytes(kp)
     flat = torch.zeros((k_pad, kp), dtype=torch.int8, device=compat.device)
     flat[:, :wl] = compat.T
@@ -153,7 +182,7 @@ def pack_table_i8(compat: torch.Tensor) -> torch.Tensor:
 
 def table_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
     """``[wl, k1 - k0]`` float32 0/1: columns ``k0 .. k1 - 1`` of the
-    class-major mismatch table that ``table`` (:func:`pack_table_i8`) holds."""
+    mismatch table that ``table`` (:func:`pack_table_i8`) holds."""
     s0, s1 = k0 // K_ALIGN, -(-k1 // K_ALIGN)
     n_sub, n_slices, _, chunks, _, _ = table.shape
     flat = table[s0:s1].permute(0, 2, 4, 1, 3, 5).reshape(
@@ -166,33 +195,42 @@ def hopper_state_from_numpy(
     expected: ExpectedSet,
     device: Union[str, torch.device],
     scheme: Optional[str] = None,
+    classes: int = 4,
 ) -> HopperState:
-    """The state of ``scheme`` (default: :func:`hopper_scheme`): the table
-    both kernels read, packed on ``device`` once (:func:`pack_table_i8`)
-    from the class-major 0/1 int8 mismatch table of ``expected.masks`` (the
-    JAX kernel's ``compat_for_plan`` table before its ``ck_s2`` scale),
-    padded with all-ones columns to a multiple of :data:`K_ALIGN`.
-    ``expected`` is this package's ``ExpectedSet`` or any object with its
-    ``masks`` (numpy ``[K, L]`` uint8), ``count``, ``length`` and
-    ``max_ns_in_barcodes``, e.g. the JAX package's."""
+    """The state of ``scheme`` (default: :func:`hopper_scheme`) for input
+    rows of ``classes`` one-hot classes per position: the table both
+    kernels read, packed on ``device`` once (:func:`pack_table_i8`) from
+    the 0/1 int8 mismatch table of ``expected.masks``, padded with all-ones
+    columns to a multiple of :data:`K_ALIGN`.  At 4 classes (bit2 rows) it
+    is class-major, the JAX kernel's ``compat_for_plan`` table before its
+    ``ck_s2`` scale; at 16 (nib4 rows, raw bytes) position-major,
+    ``ExpectedSet.compat``, built on ``device``
+    (:func:`~fqtk_tpu_torch.ops.matcher.compat16_rows`).  ``expected`` is
+    this package's ``ExpectedSet`` or any object with its ``masks`` (numpy
+    ``[K, L]`` uint8), ``count``, ``length`` and ``max_ns_in_barcodes``,
+    e.g. the JAX package's."""
     dev = resolve_device(device)
     k, length = expected.count, expected.length
     scheme = scheme or hopper_scheme(k, length)
     if scheme not in SCHEMES:
         raise ValueError(f"scheme must be one of {SCHEMES}, got {scheme!r}")
+    if classes not in CLASSES:
+        raise ValueError(f"classes must be one of {CLASSES}, got {classes}")
     k_pad = -(-k // K_ALIGN) * K_ALIGN
-    table = pack_table_i8(
-        torch.from_numpy(
+    if classes == 4:
+        compat = torch.from_numpy(
             np.ascontiguousarray(_compat_classmajor(expected.masks, k_pad, 4))
         ).to(dev)
-    )
+    else:
+        compat = compat16_rows(expected.masks, k_pad, dev).T
     return HopperState(
         scheme=scheme,
-        table=table,
+        table=pack_table_i8(compat),
         k=k,
         length=length,
         max_ns_in_barcodes=expected.max_ns_in_barcodes,
         device=dev,
+        classes=classes,
     )
 
 
@@ -207,23 +245,31 @@ def _top2_init(b: int, k: int, dev: torch.device) -> Top2:
     )
 
 
+def _onehot_of(obs: torch.Tensor, length: int, classes: int) -> torch.Tensor:
+    """The float32 one-hot of the kernels' input rows: ``[B, 4L]``
+    class-major of bit2 rows, ``[B, 16L]`` position-major of nib4 rows."""
+    if classes == 4:
+        return _onehot_f32(obs, length)
+    return _onehot16_f32(unpack_nib4(obs, length))
+
+
 def colmerge_top2_reference(
-    obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
+    obs: torch.Tensor, table: torch.Tensor, k: int, length: int, classes: int = 4
 ) -> Top2:
     """Plain PyTorch version of ``colmerge_top2`` (same signature and
-    results).
+    results): ``obs`` is bit2 rows (``classes`` 4) or nib4 rows (16).
 
-    One-hot ``[B, 4L]`` (class-major, float32) times table columns in
-    chunks of K with ``torch.matmul`` in float32: exact, since every product
-    is 0 or 1 (even in TF32) and sums stay <= L <= 255.  Top-2 per chunk,
-    merged across chunks in ascending order."""
-    b = obs_bit2.shape[0]
-    onehot = _onehot_f32(obs_bit2, length)
+    One-hot ``[B, classes * L]`` (float32) times table columns in chunks of
+    K with ``torch.matmul`` in float32: exact, since every product is 0 or 1
+    (even in TF32) and sums stay <= L <= 255 (one class per position).
+    Top-2 per chunk, merged across chunks in ascending order."""
+    b = obs.shape[0]
+    onehot = _onehot_of(obs, length, classes)
     kc = max(1, min(k, _PLAIN_CHUNK_ELEMS // max(b, 1)))
-    acc = _top2_init(b, k, obs_bit2.device)
+    acc = _top2_init(b, k, obs.device)
     for k0 in range(0, k, kc):
         k1 = min(k, k0 + kc)
-        cols = table_columns(table, k0, k1, 4 * length)
+        cols = table_columns(table, k0, k1, classes * length)
         counts = torch.matmul(onehot, cols).to(torch.int32)
         cb, ci, cn = chunk_top2(torch.clamp(counts, max=MAX_COUNT))
         acc = merge_top2(acc, (cb, ci + k0, cn))
@@ -231,11 +277,12 @@ def colmerge_top2_reference(
 
 
 def tile_top2_reference(
-    obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
+    obs: torch.Tensor, table: torch.Tensor, k: int, length: int, classes: int = 4
 ) -> Top2:
-    """Plain PyTorch version of ``tile_top2`` (same signature and results),
-    written as the TPU kernel #2 (``pallas_matcher.py:285-371``) computes,
-    tile by tile.
+    """Plain PyTorch version of ``tile_top2`` (same signature and results;
+    bit2 or nib4 rows as for :func:`colmerge_top2_reference`), written as
+    the TPU kernel #2 (``pallas_matcher.py:285-371``) computes, tile by
+    tile.
 
     Per tile of :data:`TILE_K` columns: the tile's columns of ``table``,
     counts by a float32 one-hot matmul (exact, as in
@@ -246,9 +293,9 @@ def tile_top2_reference(
     earlier tile wins ties).  Rows go in chunks so that one ``[rows,
     TILE_K]`` block stays under :data:`_PLAIN_CHUNK_ELEMS`."""
     tk = TILE_K
-    b = obs_bit2.shape[0]
-    dev = obs_bit2.device
-    onehot = _onehot_f32(obs_bit2, length)
+    b = obs.shape[0]
+    dev = obs.device
+    onehot = _onehot_of(obs, length, classes)
     big = MAX_COUNT * tk
     rows = max(1, _PLAIN_CHUNK_ELEMS // tk)
     out = []
@@ -257,7 +304,7 @@ def tile_top2_reference(
         acc = _top2_init(oh.shape[0], k, dev)
         for k0 in range(0, k, tk):
             k1 = min(k, k0 + tk)
-            counts = torch.matmul(oh, table_columns(table, k0, k1, 4 * length))
+            counts = torch.matmul(oh, table_columns(table, k0, k1, classes * length))
             col = torch.arange(k1 - k0, dtype=torch.int32, device=dev)
             key = counts.to(torch.int32) * tk + col
             m1 = key.min(dim=1).values
@@ -293,22 +340,25 @@ def plan_chunks(b: int, k: int, slots: int, max_cols: Optional[int] = None) -> T
     return -(-n_sub // subs_per), subs_per * K_ALIGN
 
 
-def _check_obs(obs: torch.Tensor, length: int) -> Tuple[int, int]:
+def _check_obs(obs: torch.Tensor, length: int, classes: int = 4) -> Tuple[int, int]:
+    """``(B, W)`` of a kernel's rows: bit2 at 4 classes, nib4 at 16."""
+    form = "bit2" if classes == 4 else "nib4"
     if obs.dtype != torch.uint8 or obs.dim() != 2:
         raise ValueError(
-            f"obs_bit2 must be [B, W] uint8, got {obs.dtype} {tuple(obs.shape)}"
+            f"obs must be [B, W] uint8 {form} rows, got {obs.dtype} {tuple(obs.shape)}"
         )
     b, width = obs.shape
-    if not 1 <= length <= 255 or width != (length + 3) // 4:
-        raise ValueError(f"obs_bit2 width {width} does not match length {length}")
+    if not 1 <= length <= 255 or width != row_bytes(form, length):
+        raise ValueError(f"{form} rows of width {width} do not match length {length}")
     if not obs.is_contiguous():
-        raise ValueError("obs_bit2 must be contiguous")
+        raise ValueError(f"{form} rows must be contiguous")
     return b, width
 
 
-def _check_table(table: torch.Tensor, obs: torch.Tensor, k: int, length: int, k_max: int) -> Tuple[int, int]:
+def _check_table(table: torch.Tensor, obs: torch.Tensor, k: int, length: int,
+                 k_max: int, classes: int = 4) -> Tuple[int, int]:
     """``(K_pad, KP)`` of a kernel's table argument, or ``ValueError``."""
-    kp = table_depth(length)
+    kp = table_depth(length, classes)
     sb = _slice_bytes(kp)
     if (
         table.dtype != torch.int8
@@ -350,22 +400,27 @@ class _Top2Kernel:
         self.plain_calls = 0
 
     @staticmethod
-    def reference(obs_bit2, table, k, length) -> Top2:
+    def reference(obs, table, k, length, classes=4) -> Top2:
         raise NotImplementedError
 
     def __call__(
-        self, obs_bit2: torch.Tensor, table: torch.Tensor, k: int, length: int
+        self, obs: torch.Tensor, table: torch.Tensor, k: int, length: int,
+        classes: int = 4,
     ) -> Top2:
-        if obs_bit2.device.type == "cpu":
+        """``(best, idx, next)`` of bit2 rows (``classes`` 4) or nib4 rows
+        (16) against ``table`` (:func:`pack_table_i8` of the same classes)."""
+        if classes not in CLASSES:
+            raise ValueError(f"classes must be one of {CLASSES}, got {classes}")
+        if obs.device.type == "cpu":
             self.plain_calls += 1
-            return self.reference(obs_bit2, table, k, length)
-        if obs_bit2.device.type != "cuda":
-            raise ValueError(f"unsupported device {obs_bit2.device}")
-        return self._launch(obs_bit2, table, k, length)
+            return self.reference(obs, table, k, length, classes)
+        if obs.device.type != "cuda":
+            raise ValueError(f"unsupported device {obs.device}")
+        return self._launch(obs, table, k, length, classes)
 
-    def _launch(self, obs, table, k, length) -> Top2:
-        b, width = _check_obs(obs, length)
-        k_pad, kp = _check_table(table, obs, k, length, self.k_max)
+    def _launch(self, obs, table, k, length, classes=4) -> Top2:
+        b, width = _check_obs(obs, length, classes)
+        k_pad, kp = _check_table(table, obs, k, length, self.k_max, classes)
         out = torch.empty((3, b), dtype=torch.int32, device=obs.device)
         if b == 0:
             return out[0], out[1], out[2]
@@ -379,7 +434,7 @@ class _Top2Kernel:
             stream = torch.cuda.current_stream(obs.device).cuda_stream
             rc = launch(
                 obs.data_ptr(), b, width,
-                table.data_ptr(), k_pad, kp, k, length,
+                table.data_ptr(), k_pad, kp, k, length, classes,
                 n_chunks, cols_per_cta,
                 None if partial is None else partial.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
@@ -388,7 +443,8 @@ class _Top2Kernel:
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} launch failed: code {rc} "
-                f"(B={b}, K={k}, L={length}, {n_chunks} x {cols_per_cta} columns)"
+                f"(B={b}, K={k}, L={length}, {classes} classes, {n_chunks} x "
+                f"{cols_per_cta} columns)"
             )
         self.launches += 1
         return out[0], out[1], out[2]
@@ -415,15 +471,21 @@ class TileTop2(_Top2Kernel):
 
 
 class HopperAssignFn:
-    """``obs [B, ceil(L/4)] uint8 (numpy or torch) -> (assigned, best, next)``
-    as tensors on the state's device, through the kernel of the state's
-    ``scheme``.
+    """``obs (numpy or torch) -> (assigned, best, next)`` as tensors on the
+    state's device, through the kernel of the state's ``scheme``, for rows
+    of input form ``form`` (:data:`~fqtk_tpu_torch.ops.matcher.INPUT_FORMS`;
+    bit2 needs a 4-class state, nib4 and raw bytes a 16-class one).
 
     ``assigned[b] == K`` is unmatched; it is uint8 when ``compact_output``
     and ``K < 255``, else int32.  The gates are those of
-    ``make_pallas_assign_fn`` for bit2 input: ``best <= max_mismatches`` and
-    ``next - best >= min_mismatch_delta``, no no-call gate (the engine ran
-    it), and ``next = 255`` when ``K == 1``."""
+    ``make_pallas_assign_fn`` (``pallas_matcher.py:559-568``):
+    ``best <= max_mismatches`` and ``next - best >= min_mismatch_delta``;
+    for nib4 and raw bytes also ``nocalls <= max_mismatches +
+    max_ns_in_barcodes``, counted on the device (bit2 rows have none: the
+    engine ran it); and ``next = 255`` when ``K == 1``.  Raw bytes become
+    masks (:func:`~fqtk_tpu_torch.ops.device_encoding.byte_to_mask`) packed
+    as nib4 on the device before the launch, as the JAX package converts
+    them in XLA before its kernel (``pallas_matcher.py:556-558``)."""
 
     def __init__(
         self,
@@ -431,10 +493,16 @@ class HopperAssignFn:
         max_mismatches: int,
         min_mismatch_delta: int,
         compact_output: bool,
+        form: str = "bit2",
     ) -> None:
+        want = 4 if form == "bit2" else 16
+        if state.classes != want:
+            raise ValueError(f"{form} rows need a {want}-class state, got {state.classes}")
         self.state = state
+        self.form = form
         self.max_mismatches = max_mismatches
         self.min_mismatch_delta = min_mismatch_delta
+        self.nocall_budget = max_mismatches + state.max_ns_in_barcodes
         self.out_dtype = (
             torch.uint8 if compact_output and state.k < 255 else torch.int32
         )
@@ -446,7 +514,7 @@ class HopperAssignFn:
         if state.device.type == "cuda":
             load_kernel(self.scheme)  # build now: a failure surfaces before the run
         # MACs of the equivalent dense one-hot contraction (bench accounting)
-        self.macs_per_row = state.k_pad * 4 * state.length
+        self.macs_per_row = state.k_pad * state.classes * state.length
 
     @property
     def launches(self) -> int:
@@ -462,15 +530,25 @@ class HopperAssignFn:
         st = self.state
         if isinstance(obs, np.ndarray):
             obs = torch.from_numpy(np.ascontiguousarray(obs))
+        check_rows(obs, self.form, st.length)
         # H2D is asynchronous for a CUDA state: the caller keeps the host
         # buffer alive until it has fetched this call's result
         obs = obs.to(st.device, non_blocking=True)
-        best, idx, nxt = self.kernels[self.scheme](obs, st.table, st.k, st.length)
+        nocalls = None
+        if self.form == "bytes":
+            masks, nocalls = masks_and_nocalls(obs, "bytes", st.length)
+            obs = pack_nib4(masks)
+        elif self.form == "nib4":
+            _, nocalls = masks_and_nocalls(obs, "nib4", st.length)
+        best, idx, nxt = self.kernels[self.scheme](
+            obs.contiguous(), st.table, st.k, st.length, st.classes)
         if st.k == 1:
             nxt = torch.full_like(nxt, MAX_COUNT)
         ok = (best <= self.max_mismatches) & (
             nxt - best >= self.min_mismatch_delta
         )
+        if nocalls is not None:
+            ok = ok & (nocalls <= self.nocall_budget)
         assigned = torch.where(ok, idx, st.k).to(self.out_dtype)
         return assigned, best, nxt
 
@@ -481,22 +559,27 @@ def make_hopper_assign_fn(
     min_mismatch_delta: int,
     *,
     device: Union[str, torch.device],
+    packed_masks: bool = False,
     packed2: bool = True,
     compact_output: bool = True,
 ) -> HopperAssignFn:
-    """Build the bit2 device matcher for ``expected`` on ``device``.
+    """Build the device matcher for ``expected`` on ``device``, for the
+    input form the flags name (as ``make_pallas_assign_fn``'s:
+    ``packed2`` bit2, ``packed_masks`` nib4, neither raw bytes; the default
+    is bit2, the demux main path's).
 
     The kernel is the one :func:`hopper_scheme` names: ``colmerge_top2``
     where the JAX package's device path runs the TPU kernel's column-merge
-    scheme, ``tile_top2`` where it runs the per-step lane reduce.  The
-    Hopper kernels keep their own tiling (:data:`ROWS_PER_CTA` rows per CTA;
-    K split by :func:`plan_chunks`)."""
-    if not packed2:
-        raise NotImplementedError(_ROADMAP_INPUTS)
+    scheme, ``tile_top2`` where it runs the per-step lane reduce; the choice
+    does not depend on the input form.  The Hopper kernels keep their own
+    tiling (:data:`ROWS_PER_CTA` rows per CTA; K split by
+    :func:`plan_chunks`)."""
+    form = input_form(packed_masks, packed2)
     if expected.length > 255:
         raise ValueError(
             "the Hopper matcher supports barcode lengths <= 255 (8-bit "
             f"count in the top-2 key), got {expected.length}"
         )
-    state = hopper_state_from_numpy(expected, device)
-    return HopperAssignFn(state, max_mismatches, min_mismatch_delta, compact_output)
+    state = hopper_state_from_numpy(
+        expected, device, classes=4 if form == "bit2" else 16)
+    return HopperAssignFn(state, max_mismatches, min_mismatch_delta, compact_output, form)

@@ -5,7 +5,7 @@ Counterparts of the Pallas bodies of ``scripts/kernel_lab.py`` (TPU kernels
 
 - ``csrc/mma_probe.cu`` (#3, ``make_variant`` -> ``go_raw``, call ``:139``)
   — ``v4_int4``, the tensor-core probe: the one-hot times the 0/1 table on
-  the tensor cores (int8 ``mma.sync``: Hopper has no int4 product), emit
+  the tensor cores (int8 ``wgmma``: Hopper has no int4 product), emit
   the count of column 0 of the last K tile;
 - ``csrc/lab_probe.cu`` (#4, ``make_variant`` -> ``build``, call ``:222``)
   — the bound probes ``v1_m1only``, ``v2_matmul``, ``v2b_store``,
@@ -20,18 +20,17 @@ Counterparts of the Pallas bodies of ``scripts/kernel_lab.py`` (TPU kernels
 - ``csrc/clamp8_top2.cu`` (#7, call ``:515``) — ``v3_clamp8`` and
   ``v3w_clamp8``: top-2 over int8 clamped counts plus a uint8 first-tile id.
 
-#4-#7 count by ``wgmma`` on the engine of ``csrc/mma_count.cuh``, through
-the lab's walk ``csrc/lab_mma.cuh``.
+All five count by ``wgmma`` on the engine of ``csrc/mma_count.cuh``,
+through the lab's walk ``csrc/lab_mma.cuh``.
 
 Every variant reads the lab's table: the class-major 0/1 mismatch table
 padded with **all-ones** columns to ``k_padded = n_k_tiles * tile_k``
-(``kernel_lab.py:62-71``), in one of two formats: int8 ``[k_padded, KP]``
-(a column's 4L entries, zero-padded to ``KP = 32 * ceil(4L / 32)``) for
-``mma_probe``; and that int8 table tiled by :func:`pack_lab_table_i8` in
-the order ``wgmma`` reads it for the others, whose plain versions read it
-back through :func:`lab_table_columns`.  :data:`TABLE_FORMAT` says which
-kernel reads which (:func:`pack_compat_bits` packs the same table into
-bits, the tests' oracle of its entries).  A pad column counts L mismatches
+(``kernel_lab.py:62-71``), as int8 (a column's 4L entries, zero-padded to
+``KP = 32 * ceil(4L / 32)``) tiled by :func:`pack_lab_table_i8` in the
+order ``wgmma`` reads it; the plain versions read it back through
+:func:`lab_table_columns`.  :data:`TABLE_FORMAT` names each kernel's
+format (:func:`pack_compat_bits` packs the same table into bits, the
+tests' oracle of its entries).  A pad column counts L mismatches
 and takes part in every result, as in the JAX lab (kernels #1 and #2 mask
 such columns; these do not).
 
@@ -76,10 +75,9 @@ GROUP_SIZES = (2, 4, 8)
 SLICE = 32
 
 #: the form of the lab's table each kernel and its plain version read:
-#: ``"i8"`` (int8 ``[k_padded, KP]``) or ``"tiled"``
-#: (:func:`pack_lab_table_i8`, the kernels that count by ``wgmma``)
+#: ``"tiled"`` (:func:`pack_lab_table_i8`, the order ``wgmma`` reads it)
 TABLE_FORMAT = {
-    "mma_probe": "i8", "lab_probe": "tiled", "clamp16_top2": "tiled",
+    "mma_probe": "tiled", "lab_probe": "tiled", "clamp16_top2": "tiled",
     "group_top2": "tiled", "clamp8_top2": "tiled",
 }
 
@@ -87,7 +85,7 @@ TABLE_FORMAT = {
 #: column) pair and K tile, reads and writes, at the TPU body's widths
 #: (``v6_group{P}``: two int32 streams once per P K tiles)
 STREAM_BYTES = {
-    "v1_m1only": 8, "v2_matmul": 0, "v2b_store": 4, "p_i8min": 2,
+    "v4_int4": 0, "v1_m1only": 8, "v2_matmul": 0, "v2b_store": 4, "p_i8min": 2,
     "p_i8minmax": 4, "v3_clamp8": 6, "v3w_clamp8": 6, "v5_clamp16": 8,
     "v6_group2": 8, "v6_group4": 4, "v6_group8": 2,
 }
@@ -96,7 +94,10 @@ STREAM_BYTES = {
 #: (``kMaxWidth`` of its design): ``group_top2`` holds its register ladder
 #: across K tiles, at 64 columns in 16x2 lanes, at 32 where it needs int32
 #: (:func:`group_lanes16`)
-MAX_WIDTH = {"lab_probe": 128, "clamp16_top2": 128, "group_top2": 64, "clamp8_top2": 128}
+MAX_WIDTH = {
+    "mma_probe": 128, "lab_probe": 128, "clamp16_top2": 128, "group_top2": 64,
+    "clamp8_top2": 128,
+}
 
 #: the variants of the kernels that read the tiled table
 TILED_VARIANTS = tuple(STREAM_BYTES)
@@ -125,11 +126,6 @@ def pack_compat_bits(compat: torch.Tensor) -> torch.Tensor:
     # the same 32 bits as int32 (two's complement), viewed as uint32
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
     return words.to(torch.int32).view(torch.uint32)
-
-
-def _i8_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.Tensor:
-    """The same columns of the int8 ``[k_padded, KP]`` table."""
-    return table[k0:k1, :wl].T.to(torch.float32)
 
 
 def lab_width(tile_k: int, cap: int = 128) -> int:
@@ -174,11 +170,6 @@ def lab_table_columns(table: torch.Tensor, k0: int, k1: int, wl: int) -> torch.T
     g0, g1 = k0 // 8, -(-k1 // 8)
     flat = table[g0:g1].permute(0, 2, 1, 3).reshape((g1 - g0) * 8, -1)
     return flat[k0 - g0 * 8:k1 - g0 * 8, :wl].T.to(torch.float32)
-
-
-#: per table format: its columns reader and the columns a row of its first
-#: axis holds
-_COLUMNS = {"i8": (_i8_columns, 1), "tiled": (lab_table_columns, 8)}
 
 
 @dataclass(frozen=True)
@@ -301,10 +292,9 @@ def lab_params(
 
 def _tile_counts(onehot: torch.Tensor, bits: torch.Tensor, p: LabParams, kb: int) -> torch.Tensor:
     """``[rows, tile_k]`` int32 mismatch counts of K tile ``kb`` (pad
-    columns count L), from the table format ``p.kernel`` reads."""
+    columns count L), from the tiled table."""
     tk = p.tile_k
-    columns, _ = _COLUMNS[TABLE_FORMAT[p.kernel]]
-    cols = columns(bits, kb * tk, (kb + 1) * tk, 4 * p.length)
+    cols = lab_table_columns(bits, kb * tk, (kb + 1) * tk, 4 * p.length)
     return torch.matmul(onehot, cols).to(torch.int32)
 
 
@@ -312,7 +302,7 @@ def _by_rows(body: Callable, obs: torch.Tensor, bits: torch.Tensor, p: LabParams
     """``body(onehot_rows, bits, p)`` over row chunks that keep one
     ``[rows, tile_k]`` block under the plain versions' element budget;
     results concatenated.  ``bits`` is the table ``p.kernel`` reads."""
-    columns = bits.shape[0] * _COLUMNS[TABLE_FORMAT[p.kernel]][1]
+    columns = bits.shape[0] * 8  # a group of 8 columns per row of the tiled table
     if columns != p.k_padded:
         raise ValueError(f"the table has {columns} columns, the lab table {p.k_padded}")
     onehot = _onehot_f32(obs, p.length)
@@ -351,8 +341,9 @@ def _mma_rows(onehot, table, p: LabParams) -> torch.Tensor:
 
 def mma_probe_reference(obs_bit2: torch.Tensor, table: torch.Tensor, p: LabParams) -> torch.Tensor:
     """Plain version of ``mma_probe`` (``v4_int4``, the body at
-    ``kernel_lab.py:114-132``) on the int8 ``[k_padded, KP]`` table:
-    ``[B]`` int32, column 0 of the last K tile's counts."""
+    ``kernel_lab.py:114-132``) on the tiled int8 table
+    (:func:`pack_lab_table_i8`): ``[B]`` int32, column 0 of the last K
+    tile's counts."""
     return _by_rows(_mma_rows, obs_bit2, table, p)
 
 
@@ -496,8 +487,6 @@ class LabKernel:
     def table_spec(self, p: LabParams) -> Tuple[torch.dtype, Tuple[int, ...]]:
         """``(dtype, shape)`` of the table this kernel reads for ``p``."""
         kp = mma_depth(p.length)
-        if self.table_format == "i8":
-            return torch.int8, (p.k_padded, kp)
         return torch.int8, (p.k_padded // 8, kp // 16, 8, 16)
 
     def check_table(self, table: torch.Tensor, obs: torch.Tensor, p: LabParams) -> None:
@@ -568,8 +557,8 @@ class LabKernel:
 
 
 class MmaProbe(LabKernel):
-    """Wrapper of ``csrc/mma_probe.cu`` (``v4_int4``): reads the int8
-    ``[k_padded, KP]`` table, one launch per call, no partials."""
+    """Wrapper of ``csrc/mma_probe.cu`` (``v4_int4``): one launch per
+    call, no partials (slice 0's CTAs write the output)."""
 
     def __init__(self) -> None:
         super().__init__("mma_probe", mma_probe_reference, exact=False)
@@ -579,8 +568,8 @@ class MmaProbe(LabKernel):
 
 
 def mma_depth(length: int) -> int:
-    """``KP``: the int8 tables' row width, 4L zero-padded to a multiple of
-    32 (the depth of one ``mma.sync.m16n8k32`` or ``wgmma`` k-step)."""
+    """``KP``: the int8 table's depth, 4L zero-padded to a multiple of
+    32 (the depth of one ``wgmma`` k-step)."""
     return 32 * -(-4 * length // 32)
 
 

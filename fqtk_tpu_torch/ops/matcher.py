@@ -11,8 +11,8 @@ first column that reaches it, and the smallest count over every other
 column.  The plain version of the Hopper kernel
 (:func:`fqtk_tpu_torch.ops.hopper_matcher.colmerge_top2_reference`) is
 built from these two, and so is :func:`make_assign_fn`, the counterpart of
-that module's XLA scan for bit2 input: the matcher of barcodes longer than
-255 bp.  The C++ pigeonhole host matcher is
+that module's XLA scan for its three input forms (:data:`INPUT_FORMS`): the
+matcher of barcodes longer than 255 bp.  The C++ pigeonhole host matcher is
 :class:`fqtk_tpu_torch.io.native.NativeBigKMatcher`.
 
 Semantics of the spec (the reference's ``src/lib/barcode_matching.rs``):
@@ -26,20 +26,20 @@ max_ns_in_barcodes`` are unassigned (``:170-172``); counts saturate at 255.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.encoding import ENCODE_LUT, NOCALL_LUT, count_nocalls
 from ..io.native import NativeBigKMatcher, NativeDemuxError
-from .device_encoding import unpack_bit2
+from .device_encoding import byte_is_nocall, byte_to_mask, unpack_bit2, unpack_nib4
 
 __all__ = [
-    "MAX_COUNT", "UNMATCHED", "ExpectedSet", "NativeBigKMatcher",
+    "INPUT_FORMS", "MAX_COUNT", "UNMATCHED", "ExpectedSet", "NativeBigKMatcher",
     "NativeDemuxError", "ScanAssignFn", "Top2", "assign_batch_np",
-    "assign_batch_np_masks", "chunk_top2", "make_assign_fn", "merge_top2",
-    "mismatch_counts_np", "resolve_device",
+    "assign_batch_np_masks", "chunk_top2", "compat16_rows", "input_form",
+    "make_assign_fn", "merge_top2", "mismatch_counts_np", "resolve_device",
 ]
 
 UNMATCHED = -1  # sentinel in *logical* output; device uses index K
@@ -48,10 +48,12 @@ MAX_COUNT = 255  # u8 saturation of the reference
 #: largest [rows, columns] float32 block a plain version materializes
 _PLAIN_CHUNK_ELEMS = 1 << 27  # 512 MiB of float32
 
-_ROADMAP_INPUTS = (
-    "only packed2 (bit2) input is ported; nib4 and raw-byte inputs are "
-    "ROADMAP.md item 'torch make_assign_fn for nib4 and raw-byte inputs'"
-)
+#: the matchers' input forms: ``bit2`` ``[B, ceil(L/4)]`` uint8, four 2-bit
+#: ACGT codes per byte (pure-ACGT rows only; 4 one-hot classes); ``nib4``
+#: ``[B, ceil(L/2)]`` uint8, two 4-bit IUPAC masks per byte, low nibble the
+#: even position; ``bytes`` ``[B, L]`` ASCII.  The last two have 16 one-hot
+#: classes (the mask values) and the no-call gate.
+INPUT_FORMS = ("bit2", "nib4", "bytes")
 
 
 @dataclass(frozen=True)
@@ -227,30 +229,98 @@ def _onehot_f32(obs_bit2: torch.Tensor, length: int) -> torch.Tensor:
     return onehot.to(torch.float32)
 
 
-class ScanAssignFn:
-    """``obs [B, ceil(L/4)] uint8 (numpy or torch) -> (assigned, best,
-    next)`` as tensors on ``device``: :func:`make_assign_fn`'s matcher.
+def input_form(packed_masks: bool, packed2: bool) -> str:
+    """The :data:`INPUT_FORMS` entry that the JAX functions' flags name:
+    ``packed2`` bit2, ``packed_masks`` nib4, neither raw bytes."""
+    if packed_masks and packed2:
+        raise ValueError("packed_masks and packed2 are mutually exclusive")
+    return "bit2" if packed2 else "nib4" if packed_masks else "bytes"
 
-    ``chunks`` is the whitelist as the int8 ``[n_chunks, 4L, kc]`` mismatch
-    table (class-major rows ``c*L + l``, pad columns all ones) on
-    ``device``; ``calls`` counts calls.  No kernel runs here: ``scheme`` is
+
+def row_bytes(form: str, length: int) -> int:
+    """Bytes per row of input form ``form`` for barcode length ``length``."""
+    return {"bit2": -(-length // 4), "nib4": -(-length // 2), "bytes": length}[form]
+
+
+def check_rows(obs: torch.Tensor, form: str, length: int) -> None:
+    """``ValueError`` unless ``obs`` is ``[B, row_bytes]`` uint8 of ``form``."""
+    width = row_bytes(form, length)
+    if obs.dtype != torch.uint8 or obs.dim() != 2 or obs.shape[1] != width:
+        raise ValueError(
+            f"obs must be [B, {width}] uint8 {form} rows, got {obs.dtype} "
+            f"{tuple(obs.shape)}"
+        )
+
+
+def masks_and_nocalls(obs: torch.Tensor, form: str, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``([B, L] int32 masks, [B] int32 no-call counts)`` of nib4 or raw-byte
+    rows, on their device: the no-call count is ``mask == 15`` for nib4 and
+    :func:`byte_is_nocall` for bytes (``fqtk_tpu/ops/matcher.py:365-378``)."""
+    if form == "nib4":
+        masks = unpack_nib4(obs, length)
+        return masks, (masks == 15).sum(dim=1, dtype=torch.int32)
+    if form == "bytes":
+        return byte_to_mask(obs), byte_is_nocall(obs).sum(dim=1, dtype=torch.int32)
+    raise ValueError(f"{form} rows carry no masks")
+
+
+def _onehot16_f32(masks: torch.Tensor) -> torch.Tensor:
+    """``[B, 16L]`` float32 position-major one-hot of ``[B, L]`` masks:
+    ``onehot[b, l*16 + c] = (masks[b, l] == c)``."""
+    cls = torch.arange(16, dtype=masks.dtype, device=masks.device)
+    onehot = masks[:, :, None] == cls[None, None, :]
+    return onehot.reshape(masks.shape[0], -1).to(torch.float32)
+
+
+def compat16_rows(masks: np.ndarray, k_pad: int, device: Union[str, torch.device]) -> torch.Tensor:
+    """``[k_pad, 16L]`` int8 on ``device``: row k is column k of
+    :attr:`ExpectedSet.compat` (entry ``l*16 + c`` is 1 iff mask value c has
+    a bit outside ``masks[k, l]``), rows from ``K`` on all ones (pad
+    columns).  Built on ``device`` in blocks of barcodes, so the host never
+    holds the table."""
+    k, length = masks.shape
+    dev = torch.device(device)
+    out = torch.ones((k_pad, 16 * length), dtype=torch.int8, device=dev)
+    cls = torch.arange(16, dtype=torch.uint8, device=dev)
+    step = max(1, (1 << 24) // (16 * length))
+    for k0 in range(0, k, step):
+        m = torch.from_numpy(np.ascontiguousarray(masks[k0:k0 + step])).to(dev)
+        viol = (cls[None, None, :] & ~m[:, :, None]) & 15
+        out[k0:k0 + len(m)] = (viol != 0).reshape(len(m), -1).to(torch.int8)
+    return out
+
+
+class ScanAssignFn:
+    """``obs (numpy or torch) -> (assigned, best, next)`` as tensors on
+    ``device``: :func:`make_assign_fn`'s matcher for rows of input form
+    ``form`` (:data:`INPUT_FORMS`).
+
+    ``chunks`` is the whitelist as the int8 ``[n_chunks, W*L, kc]`` mismatch
+    table (W = 4 classes, class-major rows ``c*L + l``, for bit2; W = 16,
+    position-major rows ``l*16 + c``, for nib4 and raw bytes; pad columns
+    all ones) on ``device``; ``calls`` counts calls.  ``nocall_budget`` is
+    ``max_mismatches + max_ns_in_barcodes`` for the 16-class forms, ``None``
+    for bit2 (no no-call gate).  No kernel runs here: ``scheme`` is
     ``"xla_scan"``, the route's name in the demux log and matcher counts."""
 
     scheme = "xla_scan"
 
     def __init__(self, chunks: torch.Tensor, k: int, length: int,
                  max_mismatches: int, min_mismatch_delta: int,
-                 compact_output: bool) -> None:
+                 compact_output: bool, form: str = "bit2",
+                 nocall_budget: Optional[int] = None) -> None:
         self.chunks = chunks
         self.k = k
         self.length = length
+        self.form = form
+        self.nocall_budget = nocall_budget
         self.device = chunks.device
         self.max_mismatches = max_mismatches
         self.min_mismatch_delta = min_mismatch_delta
         self.out_dtype = torch.uint8 if compact_output and k < 255 else torch.int32
         self.calls = 0
         # MACs of the dense one-hot contraction (bench accounting)
-        self.macs_per_row = int(chunks.shape[0]) * int(chunks.shape[2]) * 4 * length
+        self.macs_per_row = int(chunks.shape[0]) * int(chunks.shape[2]) * int(chunks.shape[1])
 
     def _top2(self, onehot: torch.Tensor) -> Top2:
         """The ``lax.scan`` of ``make_assign_fn``'s counts branch
@@ -277,23 +347,26 @@ class ScanAssignFn:
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if isinstance(obs, np.ndarray):
             obs = torch.from_numpy(np.ascontiguousarray(obs))
-        if obs.dtype != torch.uint8 or obs.dim() != 2 or obs.shape[1] != (self.length + 3) // 4:
-            raise ValueError(
-                f"obs must be [B, {(self.length + 3) // 4}] uint8 bit2 rows, got "
-                f"{obs.dtype} {tuple(obs.shape)}"
-            )
+        check_rows(obs, self.form, self.length)
         # H2D is asynchronous for a CUDA device: the caller keeps the host
         # buffer alive until it has fetched this call's result
         obs = obs.to(self.device, non_blocking=True)
-        onehot = _onehot_f32(obs, self.length)
+        nocalls = None
+        if self.form == "bit2":
+            onehot = _onehot_f32(obs, self.length)
+        else:
+            masks, nocalls = masks_and_nocalls(obs, self.form, self.length)
+            onehot = _onehot16_f32(masks)
         rows = max(1, _PLAIN_CHUNK_ELEMS // int(self.chunks.shape[2]))
         parts = [self._top2(onehot[r0:r0 + rows]) for r0 in range(0, max(1, len(onehot)), rows)]
         best, idx, nxt = (
             parts[0] if len(parts) == 1 else tuple(torch.cat(f) for f in zip(*parts))
         )
         self.calls += 1
-        # pure-ACGT rows by construction: the no-call gate ran on the host
         ok = (best <= self.max_mismatches) & (nxt - best >= self.min_mismatch_delta)
+        if nocalls is not None:
+            ok = ok & (nocalls <= self.nocall_budget)
+        # bit2 rows are pure ACGT by construction: the engine ran their gate
         assigned = torch.where(ok, idx, self.k).to(self.out_dtype)
         return assigned, best, nxt
 
@@ -309,40 +382,54 @@ def make_assign_fn(
     *,
     device: Union[str, torch.device],
 ) -> ScanAssignFn:
-    """The counterpart of ``fqtk_tpu.ops.matcher.make_assign_fn`` for bit2
-    input (``packed2=True``): ``obs [B, ceil(L/4)] -> (assigned, best,
-    next)`` for any barcode length, on ``device``.
+    """The counterpart of ``fqtk_tpu.ops.matcher.make_assign_fn``
+    (``:199-384``): ``obs -> (assigned, best, next)`` for any barcode
+    length, on ``device``, for the input form the flags name
+    (:func:`input_form`): ``packed2`` bit2 ``[B, ceil(L/4)]``,
+    ``packed_masks`` nib4 ``[B, ceil(L/2)]``, neither raw bytes ``[B, L]``.
 
     ``assigned[b] == K`` is unmatched; uint8 when ``compact_output`` and
     ``K < 255``.  K is walked in chunks of ``k_chunk`` columns, as the JAX
     ``lax.scan`` does: per chunk the counts are a float32 ``torch.matmul``
-    of the ``[B, 4L]`` one-hot with the chunk's columns (exact: 0/1 entries
-    are exact in float32, and in TF32 or bf16 too, and sums stay <= L, far
-    below 2^24), clamped at 255, columns >= K set to 255, reduced by
+    of the one-hot (``[B, 4L]`` class-major for bit2; ``[B, 16L]``
+    position-major, ``l*16 + c``, for the mask forms) with the chunk's
+    columns of the mismatch table (``[4L, K]`` or ``ExpectedSet.compat``'s
+    ``[16L, K]``, pad columns all ones).  Exact: 0/1 entries are exact in
+    float32, and in TF32 or bf16 too, and sums stay <= L, far below 2^24.
+    The counts are clamped at 255, columns >= K set to 255, reduced by
     :func:`chunk_top2` and merged in ascending order by :func:`merge_top2`
     from ``(255, K, 255)``; so ``next`` is 255 when ``K == 1``.  Gate:
-    ``best <= max_mismatches`` and ``next - best >= min_mismatch_delta``; no
-    no-call gate (bit2 rows are pure ACGT: the engine resolved the others).
+    ``best <= max_mismatches`` and ``next - best >= min_mismatch_delta``;
+    for nib4 and raw bytes also ``nocalls <= max_mismatches +
+    max_ns_in_barcodes`` on the device (``mask == 15``, or
+    :func:`~fqtk_tpu_torch.ops.device_encoding.byte_is_nocall`); bit2 rows
+    have none (they are pure ACGT: the engine resolved the others).
 
     Not a port of a TPU kernel: the JAX package computes this in XLA outside
     any Pallas kernel, so plain PyTorch and ``torch.matmul`` run it here on
     the card as on the CPU.  Only the counts branch of the JAX scan
     (``:340-351``) is ported; its combined float-key branch (``:318-339``,
     taken there for ``L <= 255``) gives the same results and is an XLA-side
-    speed trick.  nib4 and raw-byte inputs are not ported (ROADMAP.md)."""
+    speed trick."""
     from .plan import _compat_classmajor  # plan imports this module
 
-    if packed_masks or not packed2:
-        raise NotImplementedError(_ROADMAP_INPUTS)
+    form = input_form(packed_masks, packed2)
     if k_chunk < 1:
         raise ValueError(f"k_chunk must be >= 1, got {k_chunk}")
     dev = resolve_device(device)
     k, length = expected.count, expected.length
     kc = min(k_chunk, k)
     n_chunks = -(-k // kc)
-    compat = _compat_classmajor(expected.masks, n_chunks * kc, 4)  # [4L, k_pad]
-    chunks = np.ascontiguousarray(compat.reshape(4 * length, n_chunks, kc).transpose(1, 0, 2))
+    if form == "bit2":
+        compat = _compat_classmajor(expected.masks, n_chunks * kc, 4)  # [4L, k_pad]
+        chunks = torch.from_numpy(np.ascontiguousarray(
+            compat.reshape(4 * length, n_chunks, kc).transpose(1, 0, 2))).to(dev)
+        budget = None
+    else:
+        rows = compat16_rows(expected.masks, n_chunks * kc, dev)  # [k_pad, 16L]
+        chunks = rows.view(n_chunks, kc, 16 * length).transpose(1, 2).contiguous()
+        budget = max_mismatches + expected.max_ns_in_barcodes
     return ScanAssignFn(
-        torch.from_numpy(chunks).to(dev), k, length, max_mismatches,
-        min_mismatch_delta, compact_output,
+        chunks, k, length, max_mismatches, min_mismatch_delta, compact_output,
+        form=form, nocall_budget=budget,
     )

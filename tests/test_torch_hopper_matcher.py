@@ -170,12 +170,6 @@ def test_reference_signature_and_dtypes():
     np.testing.assert_array_equal(nxt.numpy(), s_next)
 
 
-def test_unported_inputs_raise():
-    es = ExpectedSet.from_barcodes(["ACGT"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hm.make_hopper_assign_fn(es, 1, 2, device="cpu", packed2=False)
-
-
 def test_cuda_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     es = ExpectedSet.from_barcodes(["ACGT"])

@@ -127,11 +127,13 @@ def whole_groups(name, k, tile_k):
 
 
 @pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "K%d_L%d_tb%d_tk%d" % s)
-@pytest.mark.parametrize("name", lk.TILED_VARIANTS)
+@pytest.mark.parametrize("name", [n for n in lk.TILED_VARIANTS if n != "v4_int4"])
 def test_tiled_variant_matches_jax_lab(script, interpret, name, shape):
     """Every kernel that reads the tiled int8 table (``lab_probe``,
     ``clamp16_top2``, ``group_top2``, ``clamp8_top2``) at the slice widths
-    64 and 32: equal to the JAX lab, tolerance 0."""
+    64 and 32: equal to the JAX lab, tolerance 0 (``v4_int4``, whose JAX
+    body XLA:CPU cannot run, at these shapes too:
+    :func:`test_v4_int4_matches_numpy_oracle`)."""
     k, length, tile_b, tile_k = shape
     k = whole_groups(name, k, tile_k)
     codes = lab.unique_barcodes(k, length)
@@ -233,13 +235,14 @@ def test_tiled_table_reads_back(k, length, tile_k):
 
 
 def test_tiled_wrappers_reject_other_tables():
-    """``lab_probe``, ``clamp16_top2``, ``group_top2`` and ``clamp8_top2``
-    take the tiled int8 table only: the bit table, the plain int8 table,
-    another dtype, another depth and a misaligned view raise."""
+    """``lab_probe``, ``clamp16_top2``, ``group_top2``, ``clamp8_top2``
+    and ``mma_probe`` take the tiled int8 table only: the bit table, the
+    untiled int8 ``[k_padded, KP]`` table, another dtype, another depth and
+    a misaligned view raise."""
     codes = lab.unique_barcodes(500, 16)
     masks = lab.masks_of(codes)
     obs = torch.from_numpy(lab.pack_bit2(codes[:32]))
-    for name in ("v1_m1only", "v3_clamp8", "v5_clamp16", "v6_group4"):
+    for name in ("v1_m1only", "v3_clamp8", "v5_clamp16", "v6_group4", "v4_int4"):
         p = lk.lab_params(name, 500, 16, 128)
         kern = lk.make_lab_kernels()[p.kernel]
         table = lab.table_for(p.kernel, masks, 128, "cpu")
@@ -247,7 +250,7 @@ def test_tiled_wrappers_reject_other_tables():
         with pytest.raises(ValueError, match="tiled table"):
             kern(obs, lab.lab_table(masks, 128, "cpu"), p)
         with pytest.raises(ValueError, match="tiled table"):
-            kern(obs, lab.lab_table_i8(masks, 128, "cpu"), p)
+            kern(obs, table.view(512, 64), p)
         with pytest.raises(ValueError, match="tiled table"):
             kern(obs, table.to(torch.int16), p)
         with pytest.raises(ValueError, match="tiled table"):
@@ -273,6 +276,21 @@ def test_stream_bytes_cover_the_tiled_variants():
     assert all(kern.table_format == lk.TABLE_FORMAT[name] for name, kern in lk.LAB_KERNELS.items())
 
 
+def test_mma_probe_runs_on_the_engine():
+    """``mma_probe`` (kernel #3) is a design of the tensor-core lab walk: it
+    reads the tiled table, runs at the engine's full width (128 columns at
+    tile_k 2,048, the lab's default), states no stream bytes, and writes its
+    output without per-slice partials."""
+    assert lk.TABLE_FORMAT["mma_probe"] == "tiled"
+    assert lk.MAX_WIDTH["mma_probe"] == 128 and lk.STREAM_BYTES["v4_int4"] == 0
+    p = lk.lab_params("v4_int4", 737_280, 16, 2048)
+    assert (p.kernel, p.width, p.n_k_tiles) == ("mma_probe", 128, 360)
+    kern = lk.LAB_KERNELS["mma_probe"]
+    assert kern.table_spec(p) == (torch.int8, (737_280 // 8, 4, 8, 16))
+    assert kern.n_slices(p) == 0
+    assert [lk.lab_params("v4_int4", 3000, 7, tk).width for tk in (64, 96, 256)] == [64, 32, 128]
+
+
 def test_tables_match_script(script):
     for k, length in [(1000, 16), (1000, 7), (1024, 16)]:
         codes = lab.unique_barcodes(k, length)
@@ -290,11 +308,13 @@ def test_tables_match_script(script):
         assert bits.shape == (1024, (4 * length + 31) // 32) and bits.dtype == torch.uint32
         assert torch.equal(bits, pack_compat_bits(torch.from_numpy(compat)))
         assert (compat[:, k:] == 1).all()
-        i8 = lab.lab_table_i8(lab.masks_of(codes), 128, "cpu").numpy()
+        tiled = lab.lab_table_tiled(lab.masks_of(codes), 128, "cpu")
         kp = 32 * -(-4 * length // 32)
-        assert i8.shape == (1024, kp) and i8.dtype == np.int8
-        np.testing.assert_array_equal(i8[:, :4 * length], compat.T)
-        assert (i8[:, 4 * length:] == 0).all()
+        assert tiled.shape == (128, kp // 16, 8, 16) and tiled.dtype == torch.int8
+        np.testing.assert_array_equal(
+            lk.lab_table_columns(tiled, 0, 1024, 4 * length).numpy(), compat)
+        depth_pad = tiled.permute(0, 2, 1, 3).reshape(1024, kp)[:, 4 * length:]
+        assert (depth_pad == 0).all()
 
 
 def _masks(k, length=4):
@@ -340,7 +360,7 @@ def test_batch_must_be_a_multiple_of_tile_b():
     assert go(obs[:32], table)[0].shape == (32,)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "K%d_L%d_tb%d_tk%d" % s)
+@pytest.mark.parametrize("shape", SHAPES + TILED_SHAPES, ids=lambda s: "K%d_L%d_tb%d_tk%d" % s)
 def test_v4_int4_matches_numpy_oracle(script, shape):
     """``v4_int4`` emits, per row, the int32 count of column 0 of the last K
     tile of the script's table (``kernel_lab.py:128-132``): here the one-hot
@@ -358,6 +378,7 @@ def test_v4_int4_matches_numpy_oracle(script, shape):
     assert len(got) == 1 and got[0].dtype == np.int32 and got[0].shape == (B,)
     np.testing.assert_array_equal(got[0], want)
     assert go.params.kernel == "mma_probe"
+    assert go.kernel.table_format == "tiled"
     assert lk.counts()["mma_probe"] == (0, 1)
 
 

@@ -1,7 +1,8 @@
-"""The CUDA kernels ``colmerge_top2``, ``tile_top2`` and the kernel lab's
+"""The CUDA kernels ``colmerge_top2``, ``tile_top2`` (on bit2 rows and on
+the 16-class input of nib4 rows and raw bytes) and the kernel lab's
 (``mma_probe``, ``lab_probe``, ``clamp16_top2``, ``group_top2``,
 ``clamp8_top2``) against their plain PyTorch versions and the NumPy spec,
-and the long-barcode route (``make_assign_fn``) against the NumPy spec, on
+and the scan route (``make_assign_fn``) against the NumPy spec, on
 the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
@@ -262,6 +263,130 @@ def test_k_chunks_on_card(monkeypatch, kernel, b):
     s_idx, s_best, s_next = spec(obs, es, 255, 0)
     np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
     np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+# --------------------------------------------------------------------------
+# the 16-class input (nib4 masks, raw bytes) of colmerge_top2 and tile_top2
+# --------------------------------------------------------------------------
+
+BASES5 = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def mask_case(rng, k, length, b):
+    """Barcodes over ACGTN (duplicates allowed: ties), reads over ACGTN with
+    a third planted exact matches (lowercase in every ninth row), a no-call
+    row and a row that mismatches barcode 0 at every position."""
+    wl = BASES5[rng.integers(0, 5, size=(k, length))]
+    wl[:, 0] = ACGT[rng.integers(0, 4, size=k)]  # keep some ACGT per barcode
+    if k > 2:
+        wl[k - 1] = wl[1]  # the same barcode far apart: the first index wins
+    es = ExpectedSet.from_barcodes([bytes(r).decode() for r in wl])
+    obs = BASES5[rng.integers(0, 5, size=(b, length))]
+    obs[0::3] = wl[rng.integers(0, k, size=len(obs[0::3]))]
+    obs[0::9] |= 0x20  # lowercase
+    obs[1] = ord("N")
+    obs[b - 1] = np.where(wl[0] == ord("A"), ord("C"), ord("A"))
+    return es, obs
+
+
+def nib4_rows(obs):
+    from fqtk_tpu_torch.core.encoding import ENCODE_LUT
+    from fqtk_tpu_torch.ops.device_encoding import pack_nib4
+
+    return pack_nib4(torch.from_numpy(ENCODE_LUT[obs]))
+
+
+#: L = 1-8 at each of the four depths of one slice (KP 32, 64, 96, 128:
+#: NK1 1-4), then the sliced walk (KP 256 at L 16, 384 at 17, 1,024 at 64,
+#: 1,152 at 65, 4,096 at 255)
+MASK_LENGTHS = [1, 3, 5, 7, 8, 16, 17, 64, 65, 255]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("length", MASK_LENGTHS)
+@pytest.mark.parametrize("k", [1, 96, 8193])
+def test_kernel_16_classes_on_card(kernel, k, length):
+    """Both kernels on nib4 rows against a 16-class table: equal to the plain
+    version and to the NumPy spec, at every depth."""
+    _need_card()
+    rng = np.random.default_rng(2000 * length + k)
+    b = 333
+    es, obs = mask_case(rng, k, length, b)
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel, classes=16)
+    assert state.table.shape[1] * state.table.shape[3] * 16 == hm.table_depth(length, 16)
+    rows = nib4_rows(obs).cuda()
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    got = kern(rows, state.table, k, length, 16)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+    want = kern.reference(rows, state.table, k, length, 16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)  # every row passes the gates
+    np.testing.assert_array_equal(got[0].cpu().numpy(), s_best)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+def test_k_chunks_16_classes_on_card(monkeypatch, kernel):
+    """K split into many column ranges on the sliced walk (L 17, KP 384)."""
+    _need_card()
+    rng = np.random.default_rng(31)
+    k, length, b = 2 * 8192 + 5, 17, 700
+    es, obs = mask_case(rng, k, length, b)
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel, classes=16)
+    rows = nib4_rows(obs).cuda()
+    monkeypatch.setattr(hm, "MIN_CHUNK_SUBS", 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert hm.plan_chunks(b, k, 2 * sms)[0] >= 16
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    got = kern(rows, state.table, k, length, 16)
+    want = kern.reference(rows, state.table, k, length, 16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s_idx, _, s_next = spec(obs, es, 255, 0)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["nib4", "bytes"])
+@pytest.mark.parametrize("k,length", [(96, 17), (1, 8), (300, 64)])
+def test_mask_assign_fn_on_card(form, k, length):
+    """nib4 or raw-byte rows in -> gated (assigned, best, next) on the card,
+    the no-call gate included: one kernel launch per call, no plain call;
+    equal to the plain version's run and the spec."""
+    _need_card()
+    rng = np.random.default_rng(k + length)
+    es, obs = mask_case(rng, k, length, 3000)
+    rows = nib4_rows(obs).numpy() if form == "nib4" else obs
+    fn = hm.make_hopper_assign_fn(es, 1, 2, device="cuda", packed2=False,
+                                  packed_masks=form == "nib4")
+    got = [t.cpu().numpy() for t in fn(rows)]
+    assert fn.launches == 1 and fn.plain_calls == 0
+    assert got[0].dtype == (np.uint8 if k < 255 else np.int32)
+    plain = hm.make_hopper_assign_fn(es, 1, 2, device="cpu", packed2=False,
+                                     packed_masks=form == "nib4")
+    for g, p, w in zip(got, plain(rows), spec(obs, es, 1, 2)):
+        np.testing.assert_array_equal(g.astype(np.int64), p.numpy().astype(np.int64))
+        np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["nib4", "bytes"])
+def test_mask_scan_on_card(form):
+    """make_assign_fn on nib4 / raw bytes on the card (plain PyTorch, no
+    kernel): equal to the spec."""
+    _need_card()
+    rng = np.random.default_rng(77)
+    es, obs = mask_case(rng, 300, 20, 1000)
+    rows = nib4_rows(obs).numpy() if form == "nib4" else obs
+    fn = make_assign_fn(es, 1, 2, k_chunk=128, packed_masks=form == "nib4", device="cuda")
+    for g, w in zip(fn(rows), spec(obs, es, 1, 2)):
+        np.testing.assert_array_equal(g.cpu().numpy().astype(np.int64), w.astype(np.int64))
 
 
 # --------------------------------------------------------------------------

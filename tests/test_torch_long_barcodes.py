@@ -110,10 +110,6 @@ def test_scan_chunks_match_jax(k_chunk):
 
 def test_scan_refusals(monkeypatch):
     es = ExpectedSet.from_barcodes(whitelist(5, 300, seed=1))
-    with pytest.raises(NotImplementedError, match="nib4"):
-        make_assign_fn(es, 1, 2, packed_masks=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="nib4"):
-        make_assign_fn(es, 1, 2, device="cpu")
     fn = make_assign_fn(es, 1, 2, packed2=True, device="cpu")
     with pytest.raises(ValueError, match="bit2 rows"):
         fn(np.zeros((4, 74), dtype=np.uint8))
