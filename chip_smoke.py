@@ -62,6 +62,20 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              the tensor-core lab kernels, the design's stream bytes per
              (row, column) pair and the shared-memory stream bound beside
              the int8 bound.
+7. placement — ``FQTK_CACHE_DIR`` set to a fresh directory; the measured
+             placement (``--matcher auto``) at K = 96 (L 17, phase 4's
+             whitelist) and K = 8,192 (L 16), per 131,072-read window: host
+             matcher, device floor and device matcher times and the choice.
+             Then phase 4's dataset twice in one process with ``--matcher
+             auto``: the first run reads the disk decision (no probe), the
+             second builds nothing (``_ASSIGN_FN_CACHE``); both equal to the
+             ``--matcher host`` run byte for byte, each reporting its own
+             launches.
+8. python-io — 150,000 reads of the same config (one full batch and one
+             partial) through ``--engine pallas``, ``jax`` and ``numpy`` on
+             the card, each byte-identical to the native run; ``pallas``
+             launches ``colmerge_top2`` on the 16-class input and calls no
+             plain version; reads/s per engine.
 
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
@@ -70,8 +84,9 @@ After the last phase the script fails if ``jax`` or any module of the JAX
 package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
 as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
 kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
-rows): launches on its path, max abs error, kernel / plain / bound /
-library ms at its main-path shape); the last line is
+rows; the 16-class ``colmerge_top2`` row's launches are phase 8's
+``--engine pallas`` run's): launches on its path, max abs error, kernel /
+plain / bound / library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
 ``build/fqtk_tpu_torch/smoke_logs/``.
 """
@@ -408,7 +423,7 @@ def phase_mask_inputs(card: str) -> dict:
     from fqtk_tpu_torch.ops.hopper_matcher import make_hopper_assign_fn
 
     kernel, plain = kernel_runs()["colmerge_top2"]
-    shapes, launches, max_err = [], 0, 0
+    shapes, max_err = [], 0
     for i, (k, length, b) in enumerate(MASK_SHAPES):
         es, obs_bytes, nib4 = mask_case(k, length, b, seed=1400 + i)
         want = spec_rows(obs_bytes[:MASK_SPEC_ROWS], es, 1, 2)
@@ -422,7 +437,6 @@ def phase_mask_inputs(card: str) -> dict:
             counts = {n: (kern.launches, kern.plain_calls) for n, kern in fn.kernels.items()}
             if counts != {"colmerge_top2": (1, 0), "tile_top2": (0, 0)}:
                 raise AssertionError(f"16-class {form} call at K={k}: kernel counts {counts}")
-            launches += 1
             check_gated(f"16-class {form}", got, want, f"K={k} L={length} B={b}")
             st = fn.state
         o = torch.from_numpy(nib4).cuda()
@@ -445,7 +459,7 @@ def phase_mask_inputs(card: str) -> dict:
             f"{row['library_ms']:.4f} ms")
         del o, st, fn
         torch.cuda.empty_cache()
-    return dict(launches=launches, shapes=shapes, max_abs_err=max_err)
+    return dict(shapes=shapes, max_abs_err=max_err)
 
 
 def long_barcode_route(card: str) -> float:
@@ -502,11 +516,15 @@ def write_bgzf(path: Path, data: bytes, pool: ThreadPoolExecutor) -> None:
 
 
 def make_whitelist(rng, k: int, length: int, min_dist: int) -> list:
-    out = []
-    while len(out) < k:
+    """``k`` seeded barcodes at least ``min_dist`` apart (each candidate
+    drawn in turn and kept if it is far enough from every kept one)."""
+    out = np.empty((k, length), dtype=np.uint8)
+    n = 0
+    while n < k:
         cand = ACGT[rng.integers(0, 4, size=length)]
-        if all(int((cand != o).sum()) >= min_dist for o in out):
-            out.append(cand)
+        if n == 0 or int((out[:n] != cand).sum(axis=1).min()) >= min_dist:
+            out[n] = cand
+            n += 1
     return [bytes(o).decode() for o in out]
 
 
@@ -645,8 +663,9 @@ def phase_demux(card: str, work: Path, n_reads: int, device: str) -> dict:
         f"demux-metrics.txt identical to the host matcher; {int(expect[-1])} unmatched "
         "as the generator implies"
     )
-    shutil.rmtree(work)
-    return dict(launches=launches, reads_per_s=rate, pipeline_s=pipe_s, wall_s=wall)
+    shutil.rmtree(work / "device")  # phase 7 reads the inputs and the host run
+    return dict(launches=launches, reads_per_s=rate, pipeline_s=pipe_s, wall_s=wall,
+                paths=paths, meta=meta, host_out=work / "host")
 
 
 # --------------------------------------------------------------------------
@@ -1005,6 +1024,199 @@ def phase_lab(card: str) -> dict:
     return dict(counts=counts, per=per, max_abs_err=max_err, library_ms=library_ms)
 
 
+# --------------------------------------------------------------------------
+# phase 7: measured placement and the caches
+# --------------------------------------------------------------------------
+
+#: (K, L, min distance, seed) of the placement probes: the phase-4
+#: whitelist (seed 11, as make_run draws it) and a mid-K one
+PLACEMENT_SHAPES = [(N_SAMPLES, BC1 + BC2, 5, 11), (8192, 16, 3, 8192)]
+
+
+def device_window_parts(dm, cfg, es) -> dict:
+    """What the probe's device window spends where, on random bit2 windows
+    of its shape (min of 2 after a warm call, host clock): the same device
+    matcher without the window dedup (``FQTK_DEVICE_DEDUP=0``), and the
+    dedup's unique-row check (``np.unique`` over the row keys) alone."""
+    import os
+
+    from fqtk_tpu_torch.ops.device_encoding import pack_bit2
+
+    os.environ["FQTK_DEVICE_DEDUP"] = "0"
+    try:
+        bare, _, _ = dm._build_device_side(cfg, es)
+    finally:
+        del os.environ["FQTK_DEVICE_DEDUP"]
+    rng = np.random.default_rng(0xF0CC)
+    windows = [pack_bit2(ACGT[rng.integers(0, 4, size=(cfg.batch_size, es.length))])
+               for _ in range(3)]
+    no_dedup_ms = dm._time_device_window(bare, windows) * 1e3
+    best = None
+    for w in windows:
+        full = np.zeros((len(w), 8), dtype=np.uint8)
+        full[:, :w.shape[1]] = w
+        t0 = time.perf_counter()
+        np.unique(full.view(np.uint64).reshape(-1), return_index=True, return_inverse=True)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return dict(no_dedup_ms=no_dedup_ms, unique_ms=best * 1e3)
+
+
+def phase_placement(card: str, dr: dict, work: Path) -> dict:
+    """The measured placement on the card at :data:`PLACEMENT_SHAPES`
+    (``_build_device_assign_fn`` with ``--matcher auto``, a fresh disk cache
+    under ``work``), then the phase-4 dataset twice in this process with
+    ``--matcher auto``: the first run reads the disk decision (no probe),
+    the second hits ``_ASSIGN_FN_CACHE`` (no build), both byte-identical to
+    phase 4's ``--matcher host`` run, each reporting its own launches."""
+    import os
+
+    from fqtk_tpu_torch.ops.matcher import ExpectedSet
+    from fqtk_tpu_torch.runtime import demux as dm
+
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    # a decision from an earlier run on this host must not decide
+    os.environ["FQTK_CACHE_DIR"] = str(work / "cache")
+    for var in ("FQTK_HOST_MATCHER_MAX_K", "FQTK_MEASURE_CROSSOVER", "FQTK_DEVICE_DEDUP"):
+        os.environ.pop(var, None)
+    dm._ASSIGN_FN_CACHE.clear()
+    placements = []
+    for k, length, min_dist, seed in PLACEMENT_SHAPES:
+        barcodes = make_whitelist(np.random.default_rng(seed), k, length, min_dist)
+        es = ExpectedSet.from_barcodes(barcodes)
+        cfg = dm.DemuxConfig(inputs=[], read_structures=[], sample_metadata=work / "none",
+                             output=work, device="cuda")
+        t0 = time.perf_counter()
+        assign, pack_mode, host = dm._build_device_assign_fn(cfg, es, barcodes)
+        probe_s = time.perf_counter() - t0
+        info = getattr(assign, "crossover", None)
+        if info is None or "crossover_floor_s" not in info:
+            raise AssertionError(f"K={k}: the placement was not measured ({pack_mode})")
+        choice = "device" if info["crossover_device_chosen"] else "host"
+        if (choice == "host") != bool(host):
+            raise AssertionError(f"K={k}: choice {choice} but host_matcher={host}")
+        row = dict(k=k, length=length, batch=cfg.batch_size, choice=choice,
+                   host_ms=info["crossover_host_s"] * 1e3,
+                   floor_ms=info["crossover_floor_s"] * 1e3,
+                   device_ms=info.get("crossover_device_s", float("nan")) * 1e3,
+                   probe_s=probe_s, **device_window_parts(dm, cfg, es))
+        placements.append(row)
+        log(f"[placement] K={k} L={length}, {cfg.batch_size}-read window: host "
+            f"{row['host_ms']:.3f} ms, device floor {row['floor_ms']:.3f} ms, device "
+            f"{row['device_ms']:.3f} ms -> {choice} ({card}); probe {probe_s:.2f} s. "
+            f"Parts of the device window: without the dedup's unique-row check "
+            f"{row['no_dedup_ms']:.3f} ms, the check's np.unique alone "
+            f"{row['unique_ms']:.3f} ms")
+        del assign
+
+    # the phase-4 dataset twice, --matcher auto, in this process
+    builds, probes = [], []
+    real_build, real_host = dm._build_device_assign_fn, dm._time_host_window
+    dm._build_device_assign_fn = lambda *a, **k: builds.append(1) or real_build(*a, **k)
+    dm._time_host_window = lambda *a, **k: probes.append(1) or real_host(*a, **k)
+    runs = []
+    try:
+        for run in (1, 2):
+            out = work / f"auto{run}"
+            t0 = time.perf_counter()
+            res = dm.run_demux(dm.DemuxConfig(
+                inputs=dr["paths"], read_structures=STRUCTURES, sample_metadata=dr["meta"],
+                output=out, device="cuda"))
+            wall = time.perf_counter() - t0
+            names = sorted(p.name for p in out.glob("*.fq.gz"))
+            if names != sorted(p.name for p in dr["host_out"].glob("*.fq.gz")):
+                raise AssertionError(f"auto run {run}: output file set differs")
+            for name in names:
+                same_decompressed(out / name, dr["host_out"] / name)
+            if (out / "demux-metrics.txt").read_bytes() != (
+                    dr["host_out"] / "demux-metrics.txt").read_bytes():
+                raise AssertionError(f"auto run {run}: demux-metrics.txt differs")
+            runs.append(dict(builds=len(builds), probes=len(probes), matcher=res.matcher,
+                             crossover={k_: v for k_, v in res.timings.items()
+                                        if k_.startswith("crossover_")},
+                             pipeline_s=res.timings["pipeline"], wall_s=wall))
+            shutil.rmtree(out)
+    finally:
+        dm._build_device_assign_fn, dm._time_host_window = real_build, real_host
+    first, second = runs
+    if (first["builds"], second["builds"]) != (1, 1) or second["probes"]:
+        raise AssertionError(f"auto runs: builds {first['builds']}, {second['builds']}; "
+                             f"probes {second['probes']} (want 1, 1; 0)")
+    if first["matcher"] != second["matcher"]:
+        raise AssertionError(f"per-run counts differ: {first['matcher']} {second['matcher']}")
+    if first["crossover"]["crossover_device_chosen"] != (placements[0]["choice"] == "device"):
+        raise AssertionError(f"auto run took {first['crossover']}, probe {placements[0]}")
+    if placements[0]["choice"] == "device" and first["matcher"].get("colmerge_top2_launches", 0) < 1:
+        raise AssertionError(f"auto run on the device launched nothing: {first['matcher']}")
+    log(f"[placement] {N_READS}-read 96-sample demux, --matcher auto, twice in one process: "
+        f"{placements[0]['choice']} from the disk decision (0 probes), 1 matcher build "
+        f"(the second run hit _ASSIGN_FN_CACHE); counts per run {first['matcher'] or '{} (host)'}; "
+        f"pipelines {first['pipeline_s']:.3f} / {second['pipeline_s']:.3f} s; both "
+        f"byte-identical to --matcher host ({card})")
+    shutil.rmtree(work)
+    return dict(placements=placements, auto_runs=runs)
+
+
+# --------------------------------------------------------------------------
+# phase 8: the Python-IO engine
+# --------------------------------------------------------------------------
+
+PY_READS = 150_000  # one full 131,072-row batch and one partial
+
+
+def phase_python_engine(card: str, work: Path) -> dict:
+    """``--engine pallas``, ``jax`` and ``numpy`` on ``cuda`` over
+    :data:`PY_READS` reads of the 96-sample dual-index config, each equal
+    to the native run byte for byte; ``pallas`` launches ``colmerge_top2``
+    on the 16-class input (counts of this run only) and calls no plain
+    version; reads/s per engine (host clock, the run's whole call)."""
+    from fqtk_tpu_torch.runtime import demux as dm
+
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    paths, meta, expect = make_run(work, PY_READS)
+    kw = dict(inputs=paths, read_structures=STRUCTURES, sample_metadata=meta, device="cuda")
+    t0 = time.perf_counter()
+    dm.run_demux(dm.DemuxConfig(output=work / "native", matcher="host", **kw))
+    native_s = time.perf_counter() - t0
+    if not np.array_equal(read_templates(work / "native" / "demux-metrics.txt"), expect):
+        raise AssertionError("native run: per-sample counts differ from the generator's")
+    names = sorted(p.name for p in (work / "native").glob("*.fq.gz"))
+    rates = {"native (host matcher)": PY_READS / native_s}
+    launches = 0
+    for engine in ("pallas", "jax", "numpy"):
+        out = work / engine
+        t0 = time.perf_counter()
+        res = dm.run_demux(dm.DemuxConfig(output=out, engine=engine, **kw))
+        wall = time.perf_counter() - t0
+        if sorted(p.name for p in out.glob("*.fq.gz")) != names:
+            raise AssertionError(f"--engine {engine}: output file set differs")
+        size = sum(same_decompressed(out / n, work / "native" / n) for n in names)
+        if (out / "demux-metrics.txt").read_bytes() != (
+                work / "native" / "demux-metrics.txt").read_bytes():
+            raise AssertionError(f"--engine {engine}: demux-metrics.txt differs")
+        m = res.matcher
+        if engine == "pallas":
+            if (m.get("scheme") != "colmerge_top2" or m["colmerge_top2_launches"] < 1
+                    or m["plain_calls"] or m["tile_top2_launches"]):
+                raise AssertionError(f"--engine pallas counts: {m}")
+            launches = m["colmerge_top2_launches"]
+        elif engine == "jax" and (m.get("scheme") != "xla_scan" or m["calls"] < 1):
+            raise AssertionError(f"--engine jax counts: {m}")
+        rates[engine] = PY_READS / wall
+        log(f"[python-io] --engine {engine} --device cuda: {PY_READS} reads in {wall:.2f} s = "
+            f"{rates[engine]:,.0f} reads/s ({card}); {len(names)} outputs ({size:,} bytes) "
+            f"and demux-metrics.txt identical to the native run; matcher {m or '{} (spec)'}")
+        shutil.rmtree(out)
+    log(f"[python-io] native run (--matcher host) {PY_READS / native_s:,.0f} reads/s, "
+        f"whole call ({card})")
+    shutil.rmtree(work)
+    return dict(rates=rates, launches=launches)
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1056,6 +1268,17 @@ def main() -> int:
     lr = phase_lab(card)
     log(f"[lab] phase 6 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 7: measured placement, the disk decision and _ASSIGN_FN_CACHE
+    t0 = time.perf_counter()
+    pr = phase_placement(card, dr, WORK.parent / "smoke_placement")
+    shutil.rmtree(WORK)  # phase 4's inputs and host run
+    log(f"[placement] phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: the Python-IO engine (a fresh matcher per run: counts from 0)
+    t0 = time.perf_counter()
+    py = phase_python_engine(card, WORK.parent / "smoke_python_io")
+    log(f"[python-io] phase 8 took {time.perf_counter() - t0:.1f} s")
+
     # a module of the JAX package, or jax itself, must not have been loaded
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "fqtk_tpu"
@@ -1066,6 +1289,7 @@ def main() -> int:
     log("[end to end] " + json.dumps({
         "demux_reads_per_s": dr["reads_per_s"], "demux_cli_wall_s": dr["wall_s"],
         "single_cell_window_call_ms": sc["call_ms"], "long_barcode_route_ms": long_ms,
+        "placement": pr["placements"], "python_io_reads_per_s": py["rates"],
         "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
@@ -1086,8 +1310,8 @@ def main() -> int:
              max_abs_err=max(kr["max_abs_err"]["tile_top2"], sc["max_abs_err"]),
              **{key: window_shape[key] for key in keys},
              shapes=kr["shapes"]["tile_top2"] + sc["shapes"]),
-        dict(name="colmerge_top2", classes=16, launches=mr["launches"],
-             launches_per="phase 3's 16-class calls (raw bytes and nib4, K 96 and 8,192)",
+        dict(name="colmerge_top2", classes=16, launches=py["launches"],
+             launches_per="150,000-read 96-sample demux, --engine pallas (Python-IO engine)",
              max_abs_err=mr["max_abs_err"], **{key: mr["shapes"][0][key] for key in keys},
              shapes=mr["shapes"]),
         dict(name="tile_top2", classes=16, launches=sc["mask"]["launches"],
@@ -1103,8 +1327,8 @@ def main() -> int:
                          max_abs_err=lr["max_abs_err"][kname], ms=runs[0]["ms"],
                          plain_ms=runs[0]["plain_ms"], bound_ms=runs[0]["bound_ms"],
                          bound_by=runs[0]["bound_by"],
-                         # counts only; the emit has no library counterpart
-                         library_ms=lr["library_ms"] if kname == "mma_probe" else None,
+                         # counts only, at the lab's shape (every lab kernel's)
+                         library_ms=lr["library_ms"],
                          variant=runs[0]["label"], variants=runs))
     print(json.dumps({"kernels": [
         {"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][0],

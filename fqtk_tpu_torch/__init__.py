@@ -10,7 +10,9 @@ JAX package's module names.
 
 Layers:
 
-- ``fqtk_tpu_torch.core``     — encoding, read structures, samples, headers.
+- ``fqtk_tpu_torch.core``     — encoding, read structures, samples, headers,
+                                ``BitEnc`` and the single-read
+                                ``BarcodeMatcher``.
 - ``fqtk_tpu_torch.io``       — the ctypes binding of ``native/fqtk_io.cpp``
                                 and the Python FASTQ / BGZF code.
 - ``fqtk_tpu_torch.ops``      — device compute: bit2 unpacking, the NumPy
@@ -18,8 +20,9 @@ Layers:
                                 Hopper kernels ``colmerge_top2`` and
                                 ``tile_top2`` with their plain PyTorch
                                 versions, the lab's kernels.
-- ``fqtk_tpu_torch.runtime``  — the demux pipeline with its native loop;
-                                subsample.
+- ``fqtk_tpu_torch.runtime``  — the demux pipeline (native engine with
+                                measured matcher placement; Python-IO
+                                engine); subsample.
 - ``fqtk_tpu_torch.parallel`` — the shard merge (``concat-shards``).
 - ``fqtk_tpu_torch.lab``      — the big-K kernel lab.
 - ``fqtk_tpu_torch.cli``      — flag-compatible command line
@@ -31,8 +34,21 @@ The package imports ``torch``, never ``jax`` and nothing of ``fqtk_tpu``.
 __version__ = "0.1.0"
 
 #: public surface, lazy so that ``import fqtk_tpu_torch`` stays free of the
-#: torch import cost (same pattern as ``fqtk_tpu/__init__.py``)
+#: torch import cost (same pattern as ``fqtk_tpu/__init__.py``): the
+#: reference-parity library surface of ``fqtk_tpu/__init__.py:27-39``, each
+#: name from this package's own module, and the port's entry points
 _LAZY = {
+    "encode": "fqtk_tpu_torch.core.encoding",
+    "decode": "fqtk_tpu_torch.core.encoding",
+    "byte_is_nocall": "fqtk_tpu_torch.core.encoding",
+    "is_valid_iupac": "fqtk_tpu_torch.core.encoding",
+    "BitEnc": "fqtk_tpu_torch.core.bitenc",
+    "BarcodeMatch": "fqtk_tpu_torch.core.barcode_matcher",
+    "BarcodeMatcher": "fqtk_tpu_torch.core.barcode_matcher",
+    "Sample": "fqtk_tpu_torch.core.samples",
+    "SampleGroup": "fqtk_tpu_torch.core.samples",
+    "ReadStructure": "fqtk_tpu_torch.core.read_structure",
+    "SegmentType": "fqtk_tpu_torch.core.read_structure",
     "DemuxConfig": "fqtk_tpu_torch.runtime.demux",
     "run_demux": "fqtk_tpu_torch.runtime.demux",
     "make_hopper_assign_fn": "fqtk_tpu_torch.ops.hopper_matcher",

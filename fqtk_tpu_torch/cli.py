@@ -2,12 +2,13 @@
 
 The same subcommands, flags, defaults and help as ``fqtk_tpu/cli.py`` (the
 parser is the port's own copy, so that the JAX package's flag surface still
-parses: flags naming engines that are not ported are refused after
-parsing), plus ``demux --device {cuda,cpu}``.  ``demux`` runs this package's
-runtime; ``subsample`` and ``concat-shards`` run its host functions, which
-never touch a device.  Flags whose
-machinery is not ported yet fail with one collected error naming the
-ROADMAP item; they never run something else instead.
+parses), plus ``demux --device {cuda,cpu}``.  ``demux`` runs this package's
+runtime (``--engine jax|pallas|numpy``: its Python-IO engine, with the
+chunked scan, the Hopper kernels or the NumPy spec as the matcher);
+``subsample`` and ``concat-shards`` run its host functions, which never
+touch a device.  Flags whose machinery is not ported yet (``--devices N>1``,
+the multi-host flags) fail with one collected error naming the ROADMAP
+item; they never run something else instead.
 """
 
 from __future__ import annotations
@@ -251,11 +252,6 @@ def _unported(args) -> List[str]:
         errors.append(
             f"{', '.join(multihost)}: multi-process demux on "
             "torch.distributed is not ported yet (ROADMAP.md)"
-        )
-    if args.engine not in ("auto", "native"):
-        errors.append(
-            f"--engine {args.engine}: the Python-IO engine and its JAX/NumPy "
-            "matchers are not ported yet (ROADMAP.md); use native"
         )
     if args.devices is not None and args.devices > 1:
         errors.append(

@@ -94,16 +94,31 @@ def test_unported_flags_fail_collected(tmp_path, capsys):
     assert rc == 1
     err = capsys.readouterr().err
     assert "Traceback" not in err
-    for part in ("--distributed-coordinator", "--merge-output", "--engine jax",
+    for part in ("--distributed-coordinator", "--merge-output",
                  "--devices 2", "ROADMAP.md"):
         assert part in err
+    assert "--engine" not in err  # the Python-IO engines are ported
     assert not (tmp_path / "o").exists()  # nothing ran
 
 
-@pytest.mark.parametrize("engine", ["pallas", "numpy"])
-def test_python_io_engines_fail(tmp_path, capsys, engine):
-    assert main(_demux_args(tmp_path, tmp_path / "o", "--engine", engine, "--device", "cpu")) == 1
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("engine", ["pallas", "jax", "numpy"])
+def test_python_io_engines_match_jax_cli(tmp_path, engine):
+    """``--engine pallas|jax|numpy --device cpu`` run the port's Python-IO
+    engine and write the bytes of ``fqtk_tpu``'s run of the same engine."""
+    out = tmp_path / "port"
+    assert main(_demux_args(tmp_path, out, "--engine", engine, "--device", "cpu")) == 0
+    ref = tmp_path / "ref"
+    args = jax_parser().parse_args(_demux_args(tmp_path, ref, "--engine", engine))
+    jax_demux.run_demux(
+        jax_demux.DemuxConfig(
+            inputs=args.inputs, read_structures=args.read_structures,
+            sample_metadata=args.sample_metadata, output=args.output,
+            batch_size=args.batch_size, engine=engine,
+        )
+    )
+    got = _read_all(out)
+    assert got == _read_all(ref)
+    assert got["Sample0000.R1.fq.gz"].count(b"\n@") == 4  # 5 reads
 
 
 def test_device_cuda_without_card_fails_cleanly(tmp_path, capsys, monkeypatch):

@@ -147,9 +147,8 @@ def test_port_host_matcher_fused_and_serial(dataset, monkeypatch, fused):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(engine="numpy"), "not ported"),
-        (dict(engine="jax"), "not ported"),
         (dict(devices=2, matcher="device"), "multi-GPU"),
+        (dict(engine="bogus"), "engine must be one of"),
         (dict(device="tpu"), "cuda or cpu"),
     ],
 )

@@ -648,6 +648,95 @@ def test_failing_lab_kernel_load_raises_on_card(monkeypatch):
     assert kern.launches == 0 and kern.plain_calls == 0
 
 
+def _demux_dataset(tmp_path, k=96, length=17, n=3000, seed=12):
+    """A seeded single-end dataset: ``k`` distinct barcodes of ``length``,
+    ``n`` reads (a tenth one base off, one in fifty with an N)."""
+    rng = np.random.default_rng(seed)
+    barcodes = set()
+    while len(barcodes) < k:
+        barcodes.add(bytes(rng.choice(ACGT, size=length)).decode())
+    barcodes = sorted(barcodes)
+    meta = tmp_path / "meta.tsv"
+    meta.write_text("sample_id\tbarcode\n" + "".join(f"S{i}\t{b}\n" for i, b in enumerate(barcodes)))
+    lines = []
+    for i in range(n):
+        bc = bytearray(barcodes[int(rng.integers(0, k))].encode())
+        if i % 10 == 0:
+            bc[i % length] = ord("T") if bc[i % length] != ord("T") else ord("G")
+        if i % 50 == 7:
+            bc[(i + 3) % length] = ord("N")
+        seq = bc.decode() + "ACGT" * 5
+        lines.append(f"@r{i} 1:N:0:0\n{seq}\n+\n{'I' * len(seq)}\n")
+    fq = tmp_path / "in.fastq"
+    fq.write_text("".join(lines))
+    return barcodes, meta, fq
+
+
+@pytest.mark.gpu
+def test_measured_placement_on_card(tmp_path, monkeypatch):
+    """The real probe on the card at K 96: host window, device floor and
+    (where the floor does not already lose) the device window, each finite
+    and positive; the choice follows the rule; the decision lands in the
+    port's own file, keyed by the card's name, and a second build reads it."""
+    _need_card()
+    from fqtk_tpu_torch.ops._build import ensure_native_engine
+    from fqtk_tpu_torch.ops.matcher import ExpectedSet as PortExpectedSet
+    from fqtk_tpu_torch.runtime import demux
+
+    ensure_native_engine()  # as run_demux does: the host matcher needs it
+    monkeypatch.setenv("FQTK_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.delenv("FQTK_HOST_MATCHER_MAX_K", raising=False)
+    monkeypatch.delenv("FQTK_MEASURE_CROSSOVER", raising=False)
+    demux._ASSIGN_FN_CACHE.clear()
+    barcodes, meta, fq = _demux_dataset(tmp_path)
+    es = PortExpectedSet.from_barcodes(barcodes)
+    cfg = demux.DemuxConfig(inputs=[fq], read_structures=["17B+T"], sample_metadata=meta,
+                            output=tmp_path / "out", device="cuda")
+    assign, pack_mode, host = demux._build_device_assign_fn(cfg, es, barcodes)
+    info = assign.crossover
+    for name in ("crossover_host_s", "crossover_floor_s"):
+        assert np.isfinite(info[name]) and info[name] > 0, info
+    if info["crossover_device_chosen"]:
+        assert not host and pack_mode == "bit2"
+        assert info["crossover_device_s"] * 1.1 < info["crossover_host_s"]
+    else:
+        assert host and pack_mode == "nib4"
+    import json
+
+    data = json.loads((tmp_path / "cache" / "crossover-torch.json").read_text())
+    (key,) = data
+    assert torch.cuda.get_device_name() in key
+    assert not (tmp_path / "cache" / "crossover.json").exists()
+    monkeypatch.setattr(demux, "_time_host_window", lambda *a, **k: 1 / 0)
+    again = demux._build_device_assign_fn(cfg, es, barcodes)
+    assert again[0].crossover == info and again[2] == host
+
+
+@pytest.mark.gpu
+def test_pallas_engine_on_card(tmp_path):
+    """``--engine pallas`` on ``cuda``: the Python-IO engine launches
+    ``colmerge_top2`` on the 16-class input, calls no plain version, and
+    writes the bytes of the numpy engine."""
+    _need_card()
+    import gzip
+
+    from fqtk_tpu_torch.runtime import demux
+
+    barcodes, meta, fq = _demux_dataset(tmp_path)
+    outs = {}
+    for engine in ("pallas", "numpy"):
+        res = demux.run_demux(demux.DemuxConfig(
+            inputs=[fq], read_structures=["17B+T"], sample_metadata=meta,
+            output=tmp_path / engine, engine=engine, batch_size=1024, device="cuda"))
+        outs[engine] = {p.name: gzip.open(p).read() for p in sorted((tmp_path / engine).glob("*.fq.gz"))}
+        outs[engine]["metrics"] = (tmp_path / engine / "demux-metrics.txt").read_bytes()
+        if engine == "pallas":
+            assert res.matcher["colmerge_top2_launches"] == 3  # ceil(3000 / 1024)
+            assert res.matcher["plain_calls"] == 0 and res.matcher["tile_top2_launches"] == 0
+        assert res.total_templates == 3000
+    assert outs["pallas"] == outs["numpy"]
+
+
 def test_every_cu_has_an_entry_point():
     """``load_kernel`` loads every ``csrc/*.cu`` and looks up its
     ``ENTRY_POINTS`` entry: each source needs one, with as many argument

@@ -19,7 +19,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import fqtk_tpu
 import fqtk_tpu.cli as jax_cli
+import fqtk_tpu.core.barcode_matcher as jax_bm
+import fqtk_tpu.core.bitenc as jax_bitenc
 import fqtk_tpu.core.encoding as jax_encoding
 import fqtk_tpu.core.headers as jax_headers
 import fqtk_tpu.core.read_structure as jax_rs
@@ -36,6 +39,8 @@ import fqtk_tpu.utils.profiling as jax_profiling
 import fqtk_tpu.utils.siphash as jax_siphash
 import fqtk_tpu_torch
 import fqtk_tpu_torch.cli as port_cli
+import fqtk_tpu_torch.core.barcode_matcher as port_bm
+import fqtk_tpu_torch.core.bitenc as port_bitenc
 import fqtk_tpu_torch.core.encoding as port_encoding
 import fqtk_tpu_torch.core.headers as port_headers
 import fqtk_tpu_torch.core.read_structure as port_rs
@@ -91,6 +96,7 @@ def test_scan_covers_the_package():
     for must in ("fqtk_tpu_torch/cli.py", "fqtk_tpu_torch/io/native.py",
                  "fqtk_tpu_torch/ops/plan.py", "fqtk_tpu_torch/runtime/subsample.py",
                  "fqtk_tpu_torch/parallel/merge.py", "fqtk_tpu_torch/lab/kernel_lab.py",
+                 "fqtk_tpu_torch/core/bitenc.py", "fqtk_tpu_torch/core/barcode_matcher.py",
                  "chip_smoke.py"):
         assert must in names
 
@@ -119,6 +125,14 @@ res = run_demux(DemuxConfig(inputs=[tmp / "in.fastq"], read_structures=["5B+T"],
 assert res.total_templates == len(reads), res.total_templates
 assert res.matcher["plain_calls"] > 0 and res.matcher["launches"] == 0, res.matcher
 assert [m["templates"] for m in res.metrics] == [8, 16, 8, 0], res.metrics
+for engine in ("pallas", "jax", "numpy"):
+    py = run_demux(DemuxConfig(inputs=[tmp / "in.fastq"], read_structures=["5B+T"],
+                               sample_metadata=tmp / "meta.tsv", output=tmp / engine,
+                               batch_size=8, engine=engine, device="cpu"))
+    assert [m["templates"] for m in py.metrics] == [8, 16, 8, 0], (engine, py.metrics)
+    assert (tmp / engine / "S1.R1.fq.gz").read_bytes()
+import fqtk_tpu_torch as top
+assert top.BarcodeMatcher([top.Sample("s", "ACGT", 0)], 1, 2).assign(b"ACGT").best_match == 0
 from fqtk_tpu_torch.cli import main
 assert main(["subsample", "-i", str(tmp / "in.fastq"), "-o", str(tmp / "sub"), "-f", "0.5", "--seed", "3"]) == 0
 n = gzip.open(tmp / "sub.R1.fq.gz").read().count(b"@r_")
@@ -468,9 +482,61 @@ def test_subsample_bytes(tmp_path, fraction, seed):
     assert outs["port", True][:2] == outs["port", False][:2]
 
 
-@pytest.mark.parametrize("piece", ["encoding", "headers", "merge", "stage_timers"])
+def test_top_level_surface_is_the_ports_own():
+    """Every name of ``fqtk_tpu.__all__`` resolves in ``fqtk_tpu_torch`` to
+    the port's own module (lazily, as there), and the port's own entry
+    points stay exported."""
+    for name in fqtk_tpu.__all__:
+        ours, theirs = getattr(fqtk_tpu_torch, name), getattr(fqtk_tpu, name)
+        if name == "__version__":
+            assert ours == theirs
+            continue
+        assert ours.__module__.startswith("fqtk_tpu_torch."), (name, ours.__module__)
+        assert ours.__module__.split(".", 1)[1] == theirs.__module__.split(".", 1)[1], name
+        assert ours is not theirs and name in dir(fqtk_tpu_torch)
+    assert {"DemuxConfig", "run_demux", "make_hopper_assign_fn",
+            "hopper_state_from_numpy"} <= set(fqtk_tpu_torch.__all__)
+    with pytest.raises(AttributeError):
+        fqtk_tpu_torch.no_such_name  # noqa: B018
+
+
+@pytest.mark.parametrize(
+    "piece", ["encoding", "headers", "merge", "stage_timers", "bitenc", "barcode_matcher"])
 def test_small_copies(tmp_path, piece):
-    if piece == "encoding":
+    if piece == "bitenc":
+        rng = np.random.default_rng(8)
+        for width in range(1, 9):
+            ours, theirs = port_bitenc.BitEnc(width), jax_bitenc.BitEnc(width)
+            for v in rng.integers(0, 256, size=100):
+                ours.push(int(v))
+                theirs.push(int(v))
+            assert list(ours) == list(theirs) and ours._storage == theirs._storage
+        with pytest.raises(ValueError) as got:
+            port_bitenc.BitEnc(0)
+        with pytest.raises(ValueError) as want:
+            jax_bitenc.BitEnc(0)
+        assert str(got.value) == str(want.value)
+        for a, b in ((b"GATTACA", b"GANNACA"), (b"N", b"R"), (b"ACGTRYKM", b"TTTTNNNN")):
+            for cap in (1, 3, 255):
+                assert port_bitenc.encode_bitenc(a).hamming(port_bitenc.encode_bitenc(b), cap) == (
+                    jax_bitenc.encode_bitenc(a).hamming(jax_bitenc.encode_bitenc(b), cap))
+    elif piece == "barcode_matcher":
+        barcodes = _random_barcodes(np.random.default_rng(4), 20, 7, iupac=False)
+        ours = port_bm.BarcodeMatcher(
+            [port_samples.Sample(f"s{i}", b, i) for i, b in enumerate(barcodes)], 1, 2)
+        theirs = jax_bm.BarcodeMatcher(
+            [jax_samples.Sample(f"s{i}", b, i) for i, b in enumerate(barcodes)], 1, 2)
+        rng = np.random.default_rng(5)
+        reads = [bytes(r) for r in np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, (200, 7))]]
+        reads += [b.encode() for b in barcodes] + [b"ACG"]
+        for read in reads:
+            got, want = ours.assign(read), theirs.assign(read)
+            assert (None if got is None else tuple(vars(got).values())) == (
+                None if want is None else tuple(vars(want).values())), read
+        for m in (ours, theirs):
+            with pytest.raises(ValueError, match="at least one sample"):
+                type(m)([], 1, 2)
+    elif piece == "encoding":
         np.testing.assert_array_equal(port_encoding.ENCODE_LUT, jax_encoding.ENCODE_LUT)
         np.testing.assert_array_equal(port_encoding.NOCALL_LUT, jax_encoding.NOCALL_LUT)
         for seq in (b"ACGTN", b"acgtn.RYKM", b"", b"NNNN"):
