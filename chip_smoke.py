@@ -76,6 +76,23 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              the card, each byte-identical to the native run; ``pallas``
              launches ``colmerge_top2`` on the 16-class input and calls no
              plain version; reads/s per engine.
+9. scale-out — the card's host has one GPU, so every tile of a mesh and
+             both processes use ``cuda:0``.  (a) Phase 5's whitelist as a
+             1 x 2 whitelist mesh (``parallel/mesh.py``): each shard of
+             3,397,440 barcodes launches ``colmerge_top2`` (no ``tile_top2``
+             launch, no plain call); phase 5's window through the dedup and
+             the mesh equals phase 5's single-device result and its host
+             oracle; one shard's kernel against its plain version bit for
+             bit at B = 16,384 and on the window's bucket, with its times
+             and bound.  (b) Phase 4's dataset through ``run_demux`` with
+             ``local_devices`` giving ``[cuda:0] * 2`` and ``devices=2``,
+             as a batch mesh and as a whitelist mesh
+             (``PALLAS_K_THRESHOLD`` set low), each byte-identical to the
+             ``--matcher host`` run.  (c) Two CLI processes
+             (``--distributed-coordinator 127.0.0.1:<port> --num-processes 2
+             --process-id i --merge-output``, gloo), each on one half of
+             phase 8's reads as a lane: the merged outputs and metrics equal
+             phase 8's single-process native run.
 
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
@@ -85,7 +102,8 @@ package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
 as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
 kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
 rows; the 16-class ``colmerge_top2`` row's launches are phase 8's
-``--engine pallas`` run's): launches on its path, max abs error, kernel /
+``--engine pallas`` run's, the shard row's phase 9's window's): launches on
+its path, max abs error, kernel /
 plain / bound / library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
 ``build/fqtk_tpu_torch/smoke_logs/``.
@@ -816,13 +834,14 @@ def phase_single_cell(card: str) -> dict:
         raise AssertionError(f"single-cell window: kernel counts {counts}")
     if len(sent) != 1 or len(sent[0]) >= SC_WINDOW:
         raise AssertionError("the window dedup did not engage")
+    warm_ms = window_call_ms(assign, packed)
     bucket = torch.from_numpy(sent[0]).cuda()
     nb = len(sent[0])
     kms = cuda_median_ms(lambda: kernel(bucket, st), 3)
     log(f"[single-cell] window of {SC_WINDOW} reads ({SC_CELLS} cells): dedup bucket "
         f"{nb} rows, {launches} tile_top2 launch(es), 0 plain calls; call "
         f"{call_s * 1e3:.1f} ms (dedup + H2D + kernel + D2H + scatter, first call), "
-        f"kernel alone at B={nb} {kms:.4f} ms ({card})")
+        f"{warm_ms:.1f} ms (min of 3 more), kernel alone at B={nb} {kms:.4f} ms ({card})")
 
     # the plain version's gated result on the same rows
     t0 = time.perf_counter()
@@ -858,7 +877,21 @@ def phase_single_cell(card: str) -> dict:
     torch.cuda.empty_cache()
     mask = single_cell_masks(card, es, codes, rng)
     return dict(launches=launches, shapes=shapes, max_abs_err=err, oracle=oracle,
-                call_ms=call_s * 1e3, mask=mask)
+                call_ms=call_s * 1e3, warm_ms=warm_ms, mask=mask,
+                # phase 9 runs the same window on a whitelist mesh
+                es=es, codes=codes, window=window, assigned=assigned, host=host)
+
+
+def window_call_ms(assign, packed: np.ndarray, reps: int = 3) -> float:
+    """Host-clock ms of ``reps`` more calls of a window through ``assign``
+    (a dedup-wrapped matcher) and their fetch: the least."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        assign(packed).fetch()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
 
 
 def single_cell_masks(card: str, es, codes: np.ndarray, rng) -> dict:
@@ -1213,8 +1246,228 @@ def phase_python_engine(card: str, work: Path) -> dict:
         shutil.rmtree(out)
     log(f"[python-io] native run (--matcher host) {PY_READS / native_s:,.0f} reads/s, "
         f"whole call ({card})")
+    # phase 9 splits the inputs into two lanes and compares with the native run
+    return dict(rates=rates, launches=launches, paths=paths, meta=meta,
+                native_out=work / "native")
+
+
+# --------------------------------------------------------------------------
+# phase 9: scale-out (the device mesh and two processes)
+# --------------------------------------------------------------------------
+
+#: shards of the single-cell whitelist mesh, all on cuda:0 (one card)
+SC_SHARDS = 2
+#: the two-process run's time limit (the rendezvous included)
+RANKS_TIMEOUT_S = 300
+
+
+def one_card(n: int):
+    """``n`` tiles of a mesh, all on ``cuda:0``: the card's host has one GPU."""
+    return [torch.device("cuda", 0)] * n
+
+
+def mesh_window(card: str, sc: dict) -> dict:
+    """Phase 5's 131,072-read clustered window through the window dedup and
+    a 1 x 2 whitelist mesh on ``cuda:0``: each shard of 3,397,440 barcodes
+    launches ``colmerge_top2`` (no ``tile_top2`` launch, no plain call);
+    ``assigned`` equal to phase 5's single-device result and to its host
+    oracle.  One shard's kernel against its plain version bit for bit at
+    B = 16,384 and on the window's bucket, with its times and bound."""
+    from fqtk_tpu_torch.ops.device_encoding import pack_bit2
+    from fqtk_tpu_torch.parallel import mesh
+    from fqtk_tpu_torch.runtime.demux import _Pending, _wrap_window_dedup
+
+    es, codes, window = sc["es"], sc["codes"], sc["window"]
+    t0 = time.perf_counter()
+    fn = mesh.make_sharded_assign_fn(
+        es, 1, 2, mesh.make_demux_mesh(1, SC_SHARDS, devices=one_card(SC_SHARDS)),
+        packed2=True, compact_output=True, with_counts=False, use_kernels=True)
+    torch.cuda.synchronize()
+    if fn.scheme != "colmerge_top2" or fn.k_per_shard != -(-SC_K // SC_SHARDS):
+        raise AssertionError(f"whitelist mesh: {fn.scheme}, {fn.k_per_shard} columns a shard")
+    shard = fn.tiles[0][0].state
+    log(f"[scale-out] whitelist mesh 1 x {SC_SHARDS} on cuda:0: {SC_SHARDS} shards of "
+        f"{fn.k_per_shard:,} barcodes built in {time.perf_counter() - t0:.2f} s, scheme "
+        f"{fn.scheme} (hopper_scheme of a shard)")
+
+    packed = pack_bit2(ACGT[window])
+    sent = []
+
+    def call(rows):
+        sent.append(rows)
+        return _Pending(fn(rows), keep=rows)
+
+    assign = _wrap_window_dedup(call)
+    for kern in fn.kernels.values():
+        kern.launches = kern.plain_calls = 0
+    t0 = time.perf_counter()
+    assigned = assign(packed).fetch().astype(np.int64)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: (kern.launches, kern.plain_calls) for name, kern in fn.kernels.items()}
+    if counts != {"colmerge_top2": (SC_SHARDS, 0), "tile_top2": (0, 0)}:
+        raise AssertionError(f"whitelist mesh window: kernel counts {counts}")
+    warm_ms = window_call_ms(assign, packed)
+    if not np.array_equal(assigned, sc["assigned"]):
+        bad = int(np.nonzero(assigned != sc["assigned"])[0][0])
+        raise AssertionError(f"mesh window row {bad}: {assigned[bad]}, one device "
+                             f"{sc['assigned'][bad]}")
+    host = sc["host"]
+    if not np.array_equal(assigned[:len(host)], host):
+        raise AssertionError(f"mesh window differs from {sc['oracle']}")
+
+    kernel, plain = kernel_runs()["colmerge_top2"]
+    rng = np.random.default_rng(9)
+    obs = torch.from_numpy(pack_bit2(ACGT[single_cell_reads(rng, codes, SC_KERNEL_B)])).cuda()
+    bucket = torch.from_numpy(sent[0]).cuda()
+    err = 0
+    for o, where in ((obs, f"B={SC_KERNEL_B}"), (bucket, f"B={len(bucket)} (the bucket)")):
+        t0 = time.perf_counter()
+        want = plain(o, shard)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, compare("colmerge_top2", kernel(o, shard), want,
+                               f"shard 0, K={shard.k} L={SC_L} {where}"))
+    ms = cuda_median_ms(lambda: kernel(bucket, shard), 5)
+    row = shape_row(shard.k, SC_L, bucket, shard, ms, plain_ms)
+    log(f"[scale-out] window of {SC_WINDOW} reads ({SC_CELLS} cells) on the mesh: bucket "
+        f"{len(bucket)} rows, {SC_SHARDS} colmerge_top2 launches (one a shard), 0 plain "
+        f"calls; call {call_ms:.1f} ms first, {warm_ms:.1f} ms min of 3 more, against "
+        f"phase 5's one device {sc['call_ms']:.1f} / {sc['warm_ms']:.1f} ms ({card}); "
+        f"assigned equal to phase 5's and to {sc['oracle']}'s")
+    log(f"[scale-out] shard 0 K={shard.k} L={SC_L} B={len(bucket)}: colmerge_top2 "
+        f"{ms:.4f} ms (median of 5), plain {plain_ms:.1f} ms (one call, host clock), equal "
+        f"bit for bit (and at B={SC_KERNEL_B}); bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} ({100 * row['bound_ms'] / ms:.1f}% reached); torch._int_mm, "
+        f"counts only, {row['library_ms']:.4f} ms ({card})")
+    del fn, shard, obs, bucket
+    torch.cuda.empty_cache()
+    return dict(launches=SC_SHARDS, shapes=[row], max_abs_err=err, call_ms=call_ms,
+                warm_ms=warm_ms)
+
+
+def mesh_demux(card: str, dr: dict, work: Path) -> dict:
+    """Phase 4's dataset through ``run_demux`` in this process with
+    ``local_devices`` giving ``[cuda:0] * 2``, ``devices=2`` and ``--matcher
+    device``: once as a 2 x 1 batch mesh, once as a 1 x 2 whitelist mesh
+    (``PALLAS_K_THRESHOLD`` set low); both byte-identical to phase 4's
+    ``--matcher host`` run, each launching ``colmerge_top2`` per tile."""
+    from fqtk_tpu_torch.parallel import mesh
+    from fqtk_tpu_torch.runtime import demux as dm
+
+    real_local, real_threshold = mesh.local_devices, dm.PALLAS_K_THRESHOLD
+    mesh.local_devices = lambda device="cuda": one_card(2)
+    runs = {}
+    try:
+        for layout, threshold in (("batch 2 x 1", real_threshold), ("whitelist 1 x 2", 8)):
+            dm.PALLAS_K_THRESHOLD = threshold
+            dm._ASSIGN_FN_CACHE.clear()
+            out = work / "mesh"
+            res = dm.run_demux(dm.DemuxConfig(
+                inputs=dr["paths"], read_structures=STRUCTURES, sample_metadata=dr["meta"],
+                output=out, devices=2, matcher="device", device="cuda"))
+            m = res.matcher
+            if m.get("scheme") != "colmerge_top2" or m["colmerge_top2_launches"] < 2 or (
+                    m["plain_calls"] or m["tile_top2_launches"]):
+                raise AssertionError(f"{layout} mesh demux counts: {m}")
+            names = sorted(p.name for p in out.glob("*.fq.gz"))
+            if names != sorted(p.name for p in dr["host_out"].glob("*.fq.gz")):
+                raise AssertionError(f"{layout} mesh demux: output file set differs")
+            size = sum(same_decompressed(out / n, dr["host_out"] / n) for n in names)
+            if (out / "demux-metrics.txt").read_bytes() != (
+                    dr["host_out"] / "demux-metrics.txt").read_bytes():
+                raise AssertionError(f"{layout} mesh demux: demux-metrics.txt differs")
+            runs[layout] = dict(matcher=m, pipeline_s=res.timings["pipeline"])
+            log(f"[scale-out] {N_READS}-read 96-sample demux, devices=2 over cuda:0 x 2, "
+                f"{layout} mesh: {m['colmerge_top2_launches']} colmerge_top2 launches, 0 "
+                f"plain calls; pipeline {res.timings['pipeline']:.3f} s; {len(names)} outputs "
+                f"({size:,} bytes) and demux-metrics.txt identical to --matcher host ({card})")
+            shutil.rmtree(out)
+    finally:
+        mesh.local_devices, dm.PALLAS_K_THRESHOLD = real_local, real_threshold
+        dm._ASSIGN_FN_CACHE.clear()
     shutil.rmtree(work)
-    return dict(rates=rates, launches=launches)
+    return runs
+
+
+def split_lanes(paths, work: Path, n_reads: int):
+    """Phase 8's inputs as two lanes: the first half of the records in each
+    file, then the rest, each lane written as BGZF in its own directory."""
+    lanes = [work / "lane0", work / "lane1"]
+    for lane in lanes:
+        lane.mkdir(parents=True)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for p in paths:
+            lines = gzip.decompress(p.read_bytes()).split(b"\n")
+            cut = 4 * (n_reads // 2)
+            for lane, part in zip(lanes, (lines[:cut], lines[cut:])):
+                data = b"\n".join(part)
+                write_bgzf(lane / p.name, data if data.endswith(b"\n") else data + b"\n", pool)
+    return [[lane / p.name for p in paths] for lane in lanes]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_processes(card: str, py: dict, work: Path) -> dict:
+    """Two CLI processes, ``--distributed-coordinator 127.0.0.1:<port>
+    --num-processes 2 --process-id i --merge-output``, each on one lane (half
+    of phase 8's reads), both matching on ``cuda:0`` with ``--matcher device``:
+    the merged outputs and ``demux-metrics.txt`` equal phase 8's
+    single-process native run over the whole input; each rank launches
+    ``colmerge_top2`` and calls no plain version."""
+    import os
+
+    lanes = split_lanes(py["paths"], work, PY_READS)
+    out = work / "out"
+    port = free_port()
+    env = dict(os.environ, FQTK_CACHE_DIR=str(work / "cache"))
+    procs, logs = [], [LOGS / f"rank{rank}.log" for rank in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for rank, inputs in enumerate(lanes):
+            cmd = [sys.executable, "-m", "fqtk_tpu_torch.cli", "demux",
+                   "-i", *map(str, inputs), "-r", *STRUCTURES, "-s", str(py["meta"]),
+                   "-o", str(out), "--matcher", "device", "--device", "cuda",
+                   "--distributed-coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                   "--process-id", str(rank), "--merge-output"]
+            with open(logs[rank], "w") as fh:
+                procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait(timeout=RANKS_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    errs = [path.read_text() for path in logs]
+    for rank, (proc, err) in enumerate(zip(procs, errs)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"rank {rank} exited {proc.returncode}:\n{err[-4000:]}")
+    launches = []
+    for rank, err in enumerate(errs):
+        m = re.search(r"colmerge_top2: (\d+) kernel launches, (\d+) plain-version calls", err)
+        if m is None or int(m.group(1)) < 1 or int(m.group(2)):
+            raise AssertionError(f"rank {rank}: no colmerge_top2 launch or a plain call")
+        launches.append(int(m.group(1)))
+    native = py["native_out"]
+    names = sorted(p.name for p in native.glob("*.fq.gz"))
+    if sorted(p.name for p in out.glob("*.fq.gz")) != names:
+        raise AssertionError("the merged output file set differs from the single run's")
+    size = sum(same_decompressed(out / n, native / n) for n in names)
+    if (out / "demux-metrics.txt").read_bytes() != (native / "demux-metrics.txt").read_bytes():
+        raise AssertionError("the merged demux-metrics.txt differs from the single run's")
+    log(f"[scale-out] two CLI processes (gloo at 127.0.0.1:{port}), {PY_READS // 2} reads "
+        f"each, both on cuda:0: colmerge_top2 launches {launches}, 0 plain calls; merged "
+        f"{len(names)} outputs ({size:,} bytes) and demux-metrics.txt identical to the "
+        f"single-process run over the whole input; wall {wall:.2f} s ({card})")
+    return dict(launches=launches, wall_s=wall)
 
 
 def main() -> int:
@@ -1271,13 +1524,22 @@ def main() -> int:
     # phase 7: measured placement, the disk decision and _ASSIGN_FN_CACHE
     t0 = time.perf_counter()
     pr = phase_placement(card, dr, WORK.parent / "smoke_placement")
-    shutil.rmtree(WORK)  # phase 4's inputs and host run
     log(f"[placement] phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # phase 8: the Python-IO engine (a fresh matcher per run: counts from 0)
     t0 = time.perf_counter()
     py = phase_python_engine(card, WORK.parent / "smoke_python_io")
     log(f"[python-io] phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 9: scale-out on the one card (fresh matchers: counts from 0)
+    t0 = time.perf_counter()
+    mw = mesh_window(card, sc)
+    md = mesh_demux(card, dr, WORK.parent / "smoke_mesh")
+    shutil.rmtree(WORK)  # phase 4's inputs and host run
+    tp = two_processes(card, py, WORK.parent / "smoke_ranks")
+    shutil.rmtree(WORK.parent / "smoke_python_io")
+    shutil.rmtree(WORK.parent / "smoke_ranks")
+    log(f"[scale-out] phase 9 took {time.perf_counter() - t0:.1f} s")
 
     # a module of the JAX package, or jax itself, must not have been loaded
     loaded = sorted(m for m in sys.modules
@@ -1290,7 +1552,9 @@ def main() -> int:
         "demux_reads_per_s": dr["reads_per_s"], "demux_cli_wall_s": dr["wall_s"],
         "single_cell_window_call_ms": sc["call_ms"], "long_barcode_route_ms": long_ms,
         "placement": pr["placements"], "python_io_reads_per_s": py["rates"],
-        "card": card}))
+        "mesh_window_call_ms": mw["call_ms"], "mesh_window_warm_ms": mw["warm_ms"],
+        "single_cell_window_warm_ms": sc["warm_ms"],
+        "mesh_demux": md, "two_processes": tp, "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1314,6 +1578,11 @@ def main() -> int:
              launches_per="150,000-read 96-sample demux, --engine pallas (Python-IO engine)",
              max_abs_err=mr["max_abs_err"], **{key: mr["shapes"][0][key] for key in keys},
              shapes=mr["shapes"]),
+        dict(name="colmerge_top2", launches=mw["launches"],
+             launches_per=f"131,072-read single-cell window on a 1 x {SC_SHARDS} whitelist "
+                          "mesh (one launch a shard of 3,397,440 barcodes, both on cuda:0)",
+             max_abs_err=mw["max_abs_err"], **{key: mw["shapes"][0][key] for key in keys},
+             shapes=mw["shapes"]),
         dict(name="tile_top2", classes=16, launches=sc["mask"]["launches"],
              launches_per="phase 5's 16-class call (raw bytes, B 16,384)",
              max_abs_err=sc["mask"]["max_abs_err"],

@@ -6,9 +6,12 @@ parses), plus ``demux --device {cuda,cpu}``.  ``demux`` runs this package's
 runtime (``--engine jax|pallas|numpy``: its Python-IO engine, with the
 chunked scan, the Hopper kernels or the NumPy spec as the matcher);
 ``subsample`` and ``concat-shards`` run its host functions, which never
-touch a device.  Flags whose machinery is not ported yet (``--devices N>1``,
-the multi-host flags) fail with one collected error naming the ROADMAP
-item; they never run something else instead.
+touch a device.  ``--devices N`` lays the device matcher out on a mesh of N
+local devices (:mod:`fqtk_tpu_torch.parallel.mesh`; unset: all of them), and
+``--distributed-coordinator`` with ``--num-processes`` / ``--process-id``
+runs one process of a multi-process demux on ``torch.distributed``
+(:mod:`fqtk_tpu_torch.parallel.distributed`; the help text keeps the JAX
+package's words).
 """
 
 from __future__ import annotations
@@ -235,32 +238,6 @@ def _build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _unported(args) -> List[str]:
-    """Collected errors for demux flags whose machinery is not ported."""
-    errors = []
-    multihost = [
-        flag
-        for flag, value in (
-            ("--distributed-coordinator", args.distributed_coordinator),
-            ("--num-processes", args.num_processes),
-            ("--process-id", args.process_id),
-            ("--merge-output", args.merge_output or None),
-        )
-        if value is not None
-    ]
-    if multihost:
-        errors.append(
-            f"{', '.join(multihost)}: multi-process demux on "
-            "torch.distributed is not ported yet (ROADMAP.md)"
-        )
-    if args.devices is not None and args.devices > 1:
-        errors.append(
-            f"--devices {args.devices}: the multi-GPU mesh is not ported yet "
-            "(ROADMAP.md)"
-        )
-    return errors
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -277,12 +254,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _dispatch(args) -> int:
     if args.command == "demux":
-        errors = _unported(args)
-        if errors:
-            raise ValueError(
-                "Unsupported options for fqtk-tpu-torch demux:\n"
-                + "".join(f"    - {e}\n" for e in errors)
-            )
         from .runtime.demux import DemuxConfig, run_demux
 
         cfg = DemuxConfig(
@@ -303,6 +274,21 @@ def _dispatch(args) -> int:
             matcher=args.matcher,
             device=args.device,
         )
+        if args.distributed_coordinator is not None:
+            from .parallel.distributed import init_distributed, run_demux_multihost
+
+            init_distributed(
+                coordinator_address=args.distributed_coordinator,
+                num_processes=args.num_processes,
+                process_id=args.process_id,
+            )
+            run_demux_multihost(cfg, merge_output=args.merge_output)
+            return 0
+        if args.merge_output:
+            raise ValueError(
+                "--merge-output requires --distributed-coordinator (a "
+                "single-process run already writes single per-sample files)"
+            )
         run_demux(cfg)
         return 0
     if args.command == "concat-shards":

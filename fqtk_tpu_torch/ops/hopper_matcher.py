@@ -494,6 +494,7 @@ class HopperAssignFn:
         min_mismatch_delta: int,
         compact_output: bool,
         form: str = "bit2",
+        kernels: Optional[Dict[str, _Top2Kernel]] = None,
     ) -> None:
         want = 4 if form == "bit2" else 16
         if state.classes != want:
@@ -507,7 +508,8 @@ class HopperAssignFn:
             torch.uint8 if compact_output and state.k < 255 else torch.int32
         )
         self.scheme = state.scheme
-        self.kernels: Dict[str, Union[ColmergeTop2, TileTop2]] = {
+        # a mesh passes one set to all its shards, so that their counts add up
+        self.kernels: Dict[str, _Top2Kernel] = kernels if kernels is not None else {
             "colmerge_top2": ColmergeTop2(),
             "tile_top2": TileTop2(),
         }
@@ -524,6 +526,22 @@ class HopperAssignFn:
     def plain_calls(self) -> int:
         return sum(kern.plain_calls for kern in self.kernels.values())
 
+    def top2(self, obs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``(best, idx, next, nocalls)`` of rows of this matcher's form
+        already on the state's device: the kernel's raw top-2, before any
+        gate (raw bytes packed to nib4 on the device first), and the rows'
+        no-call counts (``None`` for bit2 rows)."""
+        st = self.state
+        nocalls = None
+        if self.form == "bytes":
+            masks, nocalls = masks_and_nocalls(obs, "bytes", st.length)
+            obs = pack_nib4(masks)
+        elif self.form == "nib4":
+            _, nocalls = masks_and_nocalls(obs, "nib4", st.length)
+        best, idx, nxt = self.kernels[self.scheme](
+            obs.contiguous(), st.table, st.k, st.length, st.classes)
+        return best, idx, nxt, nocalls
+
     def __call__(
         self, obs: Union[np.ndarray, torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -533,15 +551,7 @@ class HopperAssignFn:
         check_rows(obs, self.form, st.length)
         # H2D is asynchronous for a CUDA state: the caller keeps the host
         # buffer alive until it has fetched this call's result
-        obs = obs.to(st.device, non_blocking=True)
-        nocalls = None
-        if self.form == "bytes":
-            masks, nocalls = masks_and_nocalls(obs, "bytes", st.length)
-            obs = pack_nib4(masks)
-        elif self.form == "nib4":
-            _, nocalls = masks_and_nocalls(obs, "nib4", st.length)
-        best, idx, nxt = self.kernels[self.scheme](
-            obs.contiguous(), st.table, st.k, st.length, st.classes)
+        best, idx, nxt, nocalls = self.top2(obs.to(st.device, non_blocking=True))
         if st.k == 1:
             nxt = torch.full_like(nxt, MAX_COUNT)
         ok = (best <= self.max_mismatches) & (

@@ -342,15 +342,10 @@ class ScanAssignFn:
             acc = merge_top2(acc, (cb, ci + i * kc, cn))
         return acc
 
-    def __call__(
-        self, obs: Union[np.ndarray, torch.Tensor]
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if isinstance(obs, np.ndarray):
-            obs = torch.from_numpy(np.ascontiguousarray(obs))
-        check_rows(obs, self.form, self.length)
-        # H2D is asynchronous for a CUDA device: the caller keeps the host
-        # buffer alive until it has fetched this call's result
-        obs = obs.to(self.device, non_blocking=True)
+    def top2(self, obs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``(best, idx, next, nocalls)`` of rows of this matcher's form
+        already on ``device``: the scan's raw top-2, before any gate, and the
+        rows' no-call counts (``None`` for bit2 rows).  Counts one call."""
         nocalls = None
         if self.form == "bit2":
             onehot = _onehot_f32(obs, self.length)
@@ -363,6 +358,17 @@ class ScanAssignFn:
             parts[0] if len(parts) == 1 else tuple(torch.cat(f) for f in zip(*parts))
         )
         self.calls += 1
+        return best, idx, nxt, nocalls
+
+    def __call__(
+        self, obs: Union[np.ndarray, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if isinstance(obs, np.ndarray):
+            obs = torch.from_numpy(np.ascontiguousarray(obs))
+        check_rows(obs, self.form, self.length)
+        # H2D is asynchronous for a CUDA device: the caller keeps the host
+        # buffer alive until it has fetched this call's result
+        best, idx, nxt, nocalls = self.top2(obs.to(self.device, non_blocking=True))
         ok = (best <= self.max_mismatches) & (nxt - best >= self.min_mismatch_delta)
         if nocalls is not None:
             ok = ok & (nocalls <= self.nocall_budget)

@@ -61,15 +61,13 @@ from ..ops import hopper_matcher as hm
 from ..ops._build import ensure_native_engine
 from ..ops.hopper_matcher import make_hopper_assign_fn, resolve_device
 from ..ops.matcher import ExpectedSet, ScanAssignFn, assign_batch_np, make_assign_fn
+from ..parallel import mesh as mesh_mod
 from ..utils.floatfmt import format_f64
 from ..utils.profiling import StageTimers, maybe_device_trace
 
 __all__ = ["DemuxConfig", "DemuxError", "DemuxResult", "run_demux"]
 
 logger = logging.getLogger("fqtk")
-
-_ROADMAP = "not ported yet (ROADMAP.md, 'Modules still to port')"
-
 
 #: fixed iteration order of segment-type writers (reference ``demux.rs:397-402``)
 _TYPE_ORDER = (
@@ -112,8 +110,10 @@ class DemuxConfig:
     # engine extensions (not in the reference CLI)
     batch_size: int = DEFAULT_BATCH_SIZE
     engine: str = "auto"  # auto | native | jax | pallas | numpy
-    #: device count for the batch/whitelist mesh: None = all local devices
-    #: (single-device path when only one is visible), 1 = force single
+    #: device count for the batch/whitelist mesh
+    #: (:mod:`fqtk_tpu_torch.parallel.mesh`): None = every local device of
+    #: ``device``'s type (``local_devices``; the single-device path when only
+    #: one is visible), 1 = force single; more than there are is clamped
     devices: Optional[int] = None
     #: assignment placement: "auto" picks host matchers when the per-batch
     #: device round-trip would dominate (tiny K, single device) and the
@@ -131,7 +131,8 @@ class DemuxResult:
     total_templates: int
     timings: Dict[str, float] = field(default_factory=dict)
     #: the device matcher's route (``scheme``: ``colmerge_top2``,
-    #: ``tile_top2`` or ``xla_scan``) and this run's counts: ``launches``
+    #: ``tile_top2`` or ``xla_scan``, per shard under a mesh, whose counts
+    #: add up every shard's) and this run's counts: ``launches``
     #: and ``plain_calls`` over both Hopper kernels and
     #: ``<kernel>_launches`` / ``<kernel>_plain_calls`` for each; the
     #: ``xla_scan`` route runs no kernel (``launches`` and ``plain_calls``
@@ -668,11 +669,16 @@ def _make_device_assign_fn(
 ):
     """:func:`_build_device_assign_fn` behind :data:`_ASSIGN_FN_CACHE`, an
     LRU of four entries keyed as the JAX package's, plus ``cfg.device``,
+    the devices :func:`~fqtk_tpu_torch.parallel.mesh.local_devices` lists,
     the Hopper kernel that :func:`~fqtk_tpu_torch.ops.hopper_matcher.hopper_scheme`
-    names and ``FQTK_DEVICE_DEDUP`` (policy inputs of the port's build)."""
+    names for a shard of the mesh :func:`_mesh_shape` lays out (the whole
+    whitelist on one device) and ``FQTK_DEVICE_DEDUP`` (policy inputs of
+    the port's build)."""
     if barcodes is None:
         # without the whitelist identity there is no safe cache key
         return _build_device_assign_fn(cfg, expected, barcodes)
+    local = mesh_mod.local_devices(cfg.device)
+    k_shard = -(-expected.count // _mesh_shape(cfg, expected, len(local))[1])
     key = (
         tuple(barcodes),
         cfg.max_mismatches,
@@ -685,7 +691,8 @@ def _make_device_assign_fn(
         PALLAS_K_THRESHOLD,  # policy inputs: keep tests/monkeypatching sound
         _host_matcher_max_k(),
         cfg.device,
-        hm.hopper_scheme(expected.count, expected.length)
+        tuple(str(d) for d in local),
+        hm.hopper_scheme(k_shard, expected.length)
         if expected.length <= 255
         else ScanAssignFn.scheme,
         os.environ.get("FQTK_DEVICE_DEDUP", "1") != "0",
@@ -785,15 +792,54 @@ def _build_device_assign_fn(cfg: DemuxConfig, expected: ExpectedSet, barcodes):
     return _build_device_side(cfg, expected)
 
 
+def _mesh_shape(cfg: DemuxConfig, expected: ExpectedSet, n_local: int) -> Tuple[int, int]:
+    """``(n_batch, n_whitelist)`` of the device side over ``n_local`` local
+    devices (``fqtk_tpu/runtime/demux.py:775-790``): ``cfg.devices``, or all
+    of them when unset, clamped to ``[1, n_local]``; one device when the
+    batch size does not divide among them on the batch axis; several shard
+    the whitelist for big K (``PALLAS_K_THRESHOLD``, L <= 255), else the
+    batch.  ``(1, 1)`` is the single-device path."""
+    big_k = expected.count >= PALLAS_K_THRESHOLD and expected.length <= 255
+    n_dev = cfg.devices if cfg.devices is not None else n_local
+    n_dev = max(1, min(n_dev, n_local))
+    # divisibility only constrains BATCH sharding; the big-K mesh shards the
+    # whitelist axis (n_batch=1), so any batch size works there
+    if n_dev > 1 and not big_k and cfg.batch_size % n_dev != 0:
+        return 1, 1
+    return (1, n_dev) if big_k else (n_dev, 1)
+
+
 def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
-    """The device matcher on one device, bit2 input, behind the window
-    dedup: the Hopper matcher for barcodes of at most 255 bp, the chunked
+    """The device matcher behind the window dedup, on a mesh
+    (:mod:`fqtk_tpu_torch.parallel.mesh`) when :func:`_mesh_shape` lays
+    out more than one of :func:`~fqtk_tpu_torch.parallel.mesh.local_devices`
+    (``cfg.devices``, or all of them): ``n x 1`` shards the batch, ``1 x n``
+    the whitelist for big K.  There the shards run the Hopper kernels on bit2
+    rows for barcodes of at most 255 bp (the counterpart of the JAX mesh's
+    per-shard Pallas kernel) and the chunked scan on nib4 rows above, the
+    no-call gate on the device, as the JAX mesh does off the TPU.  On one
+    device: the Hopper matcher for barcodes of at most 255 bp, the chunked
     scan of :func:`~fqtk_tpu_torch.ops.matcher.make_assign_fn` above (where
     the JAX package's device path leaves its Pallas kernel for
-    ``make_assign_fn(packed2=True)``).  Returns ``(assign, "bit2",
-    False)``; ``assign(obs)`` returns a :class:`_Pending`."""
-    if cfg.devices is not None and cfg.devices > 1:
-        raise DemuxError(f"--devices {cfg.devices}: multi-GPU mesh {_ROADMAP}")
+    ``make_assign_fn(packed2=True)``), both on bit2 rows.  Returns
+    ``(assign, pack_mode, False)``; ``assign(obs)`` returns a
+    :class:`_Pending`, ``assign.device_matcher`` is the matcher."""
+    local = mesh_mod.local_devices(cfg.device)
+    n_batch, n_whitelist = _mesh_shape(cfg, expected, len(local))
+    wanted = cfg.devices if cfg.devices is not None else len(local)
+    if wanted > len(local):
+        logger.info(
+            "--devices %d: %d local %s device(s); using %d",
+            wanted, len(local), cfg.device, len(local),
+        )
+    if n_batch * n_whitelist == 1 and min(wanted, len(local)) > 1:
+        logger.warning(
+            "batch size %d not divisible by %d devices; using a single device",
+            cfg.batch_size,
+            min(wanted, len(local)),
+        )
+    if n_batch * n_whitelist > 1:
+        return _build_mesh_side(cfg, expected, local, n_batch, n_whitelist)
     if expected.length <= 255:
         # colmerge_top2 up to K = 4,194,304, tile_top2 above (hopper_scheme)
         fn = make_hopper_assign_fn(
@@ -826,6 +872,45 @@ def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
     wrapped = _wrap_window_dedup(assign)
     wrapped.device_matcher = fn
     return wrapped, "bit2", False
+
+
+def _build_mesh_side(cfg: DemuxConfig, expected: ExpectedSet, local, n_batch: int,
+                     n_whitelist: int):
+    """:func:`_build_device_side` over an ``n_batch x n_whitelist`` mesh of
+    ``local``'s first devices (``fqtk_tpu/runtime/demux.py:792-827``)."""
+    n_dev = n_batch * n_whitelist
+    mesh = mesh_mod.make_demux_mesh(n_batch, n_whitelist, devices=local[:n_dev])
+    logger.info(
+        "device mesh: %d-way %s parallelism over %d local devices",
+        n_dev,
+        "whitelist" if n_whitelist > 1 else "batch",
+        len(local),
+    )
+    # bit2 rows through the shards' Hopper kernels wherever they take the
+    # length; nib4 through the scan above, with the no-call gate on the device
+    kernels = expected.length <= 255
+    fn = mesh_mod.make_sharded_assign_fn(
+        expected,
+        cfg.max_mismatches,
+        cfg.min_mismatch_delta,
+        mesh,
+        packed2=kernels,
+        packed_masks=not kernels,
+        compact_output=True,
+        with_counts=False,
+        use_kernels=kernels,
+    )
+    logger.info(
+        "device matcher: %s per shard of %d columns (K=%d, L=%d)",
+        fn.scheme, fn.k_per_shard, expected.count, expected.length,
+    )
+
+    def assign(obs_packed):
+        return _Pending(fn(obs_packed), keep=obs_packed)
+
+    wrapped = _wrap_window_dedup(assign)
+    wrapped.device_matcher = fn
+    return wrapped, ("bit2" if kernels else "nib4"), False
 
 
 def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
@@ -892,11 +977,11 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
 
 
 def _matcher_counts(fn) -> Dict[str, int]:
-    """The cumulative counters of a device matcher (``HopperAssignFn`` or
-    ``ScanAssignFn``); empty for none."""
+    """The cumulative counters of a device matcher (``HopperAssignFn``,
+    ``ScanAssignFn`` or a mesh's ``ShardedAssignFn``); empty for none."""
     if fn is None:
         return {}
-    if isinstance(fn, ScanAssignFn):
+    if fn.scheme == ScanAssignFn.scheme:
         # the route of barcodes longer than 255 bp runs no kernel
         return {"launches": 0, "plain_calls": 0, "calls": fn.calls}
     counts = {"launches": fn.launches, "plain_calls": fn.plain_calls}

@@ -1,5 +1,7 @@
-"""fqtk_tpu_torch's command line: flag parity with fqtk_tpu's, dispatch,
-clean errors for what is not ported, and no JAX anywhere in the package."""
+"""fqtk_tpu_torch's command line: flag parity with fqtk_tpu's, dispatch
+(the mesh's ``--devices``, the multi-process flags' errors; the two-process
+runs are ``test_torch_multiprocess.py``), clean errors, and no JAX anywhere
+in the package."""
 
 import argparse
 import ast
@@ -83,22 +85,43 @@ def test_demux_cli_on_cpu_matches_jax_numpy_engine(tmp_path):
     assert got["Sample0000.R1.fq.gz"].count(b"\n@") == 4  # 5 reads
 
 
-def test_unported_flags_fail_collected(tmp_path, capsys):
-    rc = main(
-        _demux_args(
-            tmp_path, tmp_path / "o", "--engine", "jax", "--devices", "2",
-            "--distributed-coordinator", "localhost:1", "--merge-output",
-            "--device", "cpu",
-        )
-    )
+def test_merge_output_requires_coordinator(tmp_path, capsys):
+    """``--merge-output`` without ``--distributed-coordinator`` fails with the
+    JAX package's words, before anything runs."""
+    rc = main(_demux_args(tmp_path, tmp_path / "o", "--merge-output", "--device", "cpu"))
     assert rc == 1
     err = capsys.readouterr().err
     assert "Traceback" not in err
-    for part in ("--distributed-coordinator", "--merge-output",
-                 "--devices 2", "ROADMAP.md"):
-        assert part in err
-    assert "--engine" not in err  # the Python-IO engines are ported
+    assert ("--merge-output requires --distributed-coordinator (a single-process run "
+            "already writes single per-sample files)") in err
     assert not (tmp_path / "o").exists()  # nothing ran
+
+
+def test_devices_flag_runs_the_mesh(tmp_path, monkeypatch, caplog):
+    """``--devices 4`` lays the device matcher out on a 4 x 1 batch mesh (four
+    CPU "devices" here) and writes the bytes of ``fqtk_tpu``'s run."""
+    from fqtk_tpu_torch.parallel import mesh
+    from fqtk_tpu_torch.runtime import demux as torch_demux
+
+    monkeypatch.setattr(mesh, "local_devices", lambda device="cuda": [torch.device("cpu")] * 4)
+    torch_demux._ASSIGN_FN_CACHE.clear()
+    out = tmp_path / "port"
+    with caplog.at_level("INFO", logger="fqtk"):
+        rc = main(_demux_args(tmp_path, out, "--devices", "4", "--matcher", "device",
+                              "--device", "cpu"))
+    torch_demux._ASSIGN_FN_CACHE.clear()
+    assert rc == 0
+    assert "device mesh: 4-way batch parallelism over 4 local devices" in caplog.text
+    ref = tmp_path / "ref"
+    args = jax_parser().parse_args(_demux_args(tmp_path, ref, "--engine", "numpy"))
+    jax_demux.run_demux(
+        jax_demux.DemuxConfig(
+            inputs=args.inputs, read_structures=args.read_structures,
+            sample_metadata=args.sample_metadata, output=args.output,
+            batch_size=args.batch_size, engine="numpy",
+        )
+    )
+    assert _read_all(out) == _read_all(ref)
 
 
 @pytest.mark.parametrize("engine", ["pallas", "jax", "numpy"])

@@ -147,7 +147,6 @@ def test_port_host_matcher_fused_and_serial(dataset, monkeypatch, fused):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(devices=2, matcher="device"), "multi-GPU"),
         (dict(engine="bogus"), "engine must be one of"),
         (dict(device="tpu"), "cuda or cpu"),
     ],
@@ -157,6 +156,20 @@ def test_unported_configs_raise(dataset, kw, match):
     cfg = torch_demux.DemuxConfig(**_kw(paths, meta, tmp / "bad", **{"device": "cpu", **kw}))
     with pytest.raises((RuntimeError, ValueError), match=match):
         torch_demux.run_demux(cfg)
+
+
+def test_devices_beyond_the_local_ones_are_clamped(dataset, caplog):
+    """``devices=2`` where ``local_devices`` lists one (the CPU): the run
+    stays on that device, says so, and writes the NumPy engine's bytes."""
+    tmp, paths, meta = dataset
+    out = tmp / "port_devices2"
+    with caplog.at_level(logging.INFO, logger="fqtk"):
+        res = torch_demux.run_demux(torch_demux.DemuxConfig(
+            **_kw(paths, meta, out, devices=2, matcher="device", device="cpu")))
+    assert "--devices 2: 1 local cpu device(s); using 1" in caplog.text
+    assert "device mesh" not in caplog.text
+    assert res.matcher["scheme"] == "colmerge_top2" and res.matcher["plain_calls"] > 0
+    assert _outputs(out) == _outputs(tmp / "numpy")
 
 
 def test_cuda_without_card_raises(dataset, monkeypatch):

@@ -2,8 +2,9 @@
 the 16-class input of nib4 rows and raw bytes) and the kernel lab's
 (``mma_probe``, ``lab_probe``, ``clamp16_top2``, ``group_top2``,
 ``clamp8_top2``) against their plain PyTorch versions and the NumPy spec,
-and the scan route (``make_assign_fn``) against the NumPy spec, on
-the card.  Marked
+the scan route (``make_assign_fn``) against the NumPy spec, and the
+device mesh (``parallel/mesh.py``, every tile on ``cuda:0``) against its
+CPU run and the spec, on the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -735,6 +736,88 @@ def test_pallas_engine_on_card(tmp_path):
             assert res.matcher["plain_calls"] == 0 and res.matcher["tile_top2_launches"] == 0
         assert res.total_templates == 3000
     assert outs["pallas"] == outs["numpy"]
+
+
+def _nib4(obs):
+    from fqtk_tpu.core.encoding import ENCODE_LUT
+
+    masks = ENCODE_LUT[obs]
+    b, length = masks.shape
+    padded = np.zeros((b, length + length % 2), dtype=np.uint8)
+    padded[:, :length] = masks
+    return (padded[:, 0::2] | (padded[:, 1::2] << 4)).astype(np.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["bit2", "nib4", "bytes"])
+@pytest.mark.parametrize("n_batch,n_k", [(2, 1), (1, 2), (2, 3)])
+def test_sharded_mesh_on_card(n_batch, n_k, form):
+    """The mesh with every tile on ``cuda:0`` (the card's host has one GPU):
+    each tile launches its shard's kernel once, no plain call, and
+    ``(assigned, counts)`` equal the same mesh on the CPU (the plain
+    versions) and the NumPy spec; the gate uses the whole whitelist's
+    no-call budget (an N in one shard's barcode)."""
+    _need_card()
+    from fqtk_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(31 + n_batch * 10 + n_k)
+    es, obs = whitelist_case(rng, k=301, length=12, b=1001)
+    if form != "bit2":
+        obs[5::40, 3] = ord("N")
+        obs[9::40, 2:4] = ord("N")
+    rows = pack_bit2(obs) if form == "bit2" else _nib4(obs) if form == "nib4" else obs
+    flags = dict(packed2=form == "bit2", packed_masks=form == "nib4")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        devices = [torch.device(dev, 0) if dev == "cuda" else torch.device("cpu")] * (n_batch * n_k)
+        fn = mesh.make_sharded_assign_fn(
+            es, 1, 2, mesh.make_demux_mesh(n_batch, n_k, devices=devices), **flags)
+        assigned, counts = fn(rows)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert assigned.device.type == "cuda"
+            assert (fn.launches, fn.plain_calls) == (n_batch * n_k, 0)
+            assert fn.kernels["colmerge_top2"].launches == n_batch * n_k
+        else:
+            assert (fn.launches, fn.plain_calls) == (0, n_batch * n_k)
+        got[dev] = (assigned.cpu().numpy(), counts.cpu().numpy())
+    want = spec(obs, es, 1, 2)[0]
+    for assigned, counts in got.values():
+        np.testing.assert_array_equal(assigned, want)
+        np.testing.assert_array_equal(counts, np.bincount(want, minlength=es.count + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [None, 8])
+def test_mesh_demux_on_card(tmp_path, monkeypatch, threshold):
+    """``run_demux`` with ``devices=2`` over ``[cuda:0] * 2``: the batch mesh,
+    and the whitelist mesh with ``PALLAS_K_THRESHOLD`` set low; each
+    launches ``colmerge_top2`` per tile, calls no plain version, and writes
+    the bytes of the numpy engine."""
+    _need_card()
+    import gzip
+
+    from fqtk_tpu_torch.parallel import mesh
+    from fqtk_tpu_torch.runtime import demux
+
+    monkeypatch.setattr(mesh, "local_devices", lambda device="cuda": [torch.device("cuda", 0)] * 2)
+    if threshold is not None:
+        monkeypatch.setattr(demux, "PALLAS_K_THRESHOLD", threshold)
+    demux._ASSIGN_FN_CACHE.clear()
+    barcodes, meta, fq = _demux_dataset(tmp_path)
+    outs = {}
+    for engine in ("native", "numpy"):
+        res = demux.run_demux(demux.DemuxConfig(
+            inputs=[fq], read_structures=["17B+T"], sample_metadata=meta,
+            output=tmp_path / engine, engine=engine, batch_size=1024, devices=2,
+            matcher="device", device="cuda"))
+        outs[engine] = {p.name: gzip.open(p).read() for p in sorted((tmp_path / engine).glob("*.fq.gz"))}
+        outs[engine]["metrics"] = (tmp_path / engine / "demux-metrics.txt").read_bytes()
+        if engine == "native":
+            assert res.matcher["colmerge_top2_launches"] == 2 * 3  # 2 tiles x ceil(3000 / 1024)
+            assert res.matcher["plain_calls"] == 0 and res.matcher["tile_top2_launches"] == 0
+    demux._ASSIGN_FN_CACHE.clear()
+    assert outs["native"] == outs["numpy"]
 
 
 def test_every_cu_has_an_entry_point():

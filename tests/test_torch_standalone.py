@@ -95,7 +95,8 @@ def test_scan_covers_the_package():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for must in ("fqtk_tpu_torch/cli.py", "fqtk_tpu_torch/io/native.py",
                  "fqtk_tpu_torch/ops/plan.py", "fqtk_tpu_torch/runtime/subsample.py",
-                 "fqtk_tpu_torch/parallel/merge.py", "fqtk_tpu_torch/lab/kernel_lab.py",
+                 "fqtk_tpu_torch/parallel/merge.py", "fqtk_tpu_torch/parallel/mesh.py",
+                 "fqtk_tpu_torch/parallel/distributed.py", "fqtk_tpu_torch/lab/kernel_lab.py",
                  "fqtk_tpu_torch/core/bitenc.py", "fqtk_tpu_torch/core/barcode_matcher.py",
                  "chip_smoke.py"):
         assert must in names
