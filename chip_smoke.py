@@ -94,6 +94,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              phase 8's reads as a lane: the merged outputs and metrics equal
              phase 8's single-process native run.
 
+10. entry points and harness — ``fqtk_tpu_torch.graft_entry``: ``entry()``
+             on the card (equal to its CPU run and to the NumPy spec), then
+             ``dryrun_multichip(1)`` and ``dryrun_multichip(2, [cuda:0] * 2)``
+             (the sharded small-K step, the product driver over the mesh,
+             the big-K whitelist-sharded steps and the forced pigeonhole
+             driver, each against the spec or the NumPy engine): every
+             sharded step launches ``colmerge_top2`` with no plain call.
+             Then ``fqtk_tpu_torch.bench``'s ``main`` in this process with
+             only its read counts and trials cut (:data:`BENCH_CUT`):
+             every config in ``bench.py``'s order, exit 0 (no config
+             recorded an error, every e2e run's ``total_templates`` held),
+             the mid-K leg and the 737K device leg each launching
+             ``colmerge_top2`` with no plain call; each config's numbers
+             and wall time.  Then ``colmerge_top2`` against its plain
+             version at the 737K leg's shape (K 737,280, B 131,072).
+
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
 
@@ -102,7 +118,8 @@ package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
 as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
 kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
 rows; the 16-class ``colmerge_top2`` row's launches are phase 8's
-``--engine pallas`` run's, the shard row's phase 9's window's): launches on
+``--engine pallas`` run's, the shard row's phase 9's window's, two more
+``colmerge_top2`` rows phase 10's harness legs'): launches on
 its path, max abs error, kernel /
 plain / bound / library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
@@ -1470,6 +1487,145 @@ def two_processes(card: str, py: dict, work: Path) -> dict:
     return dict(launches=launches, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the driver entry points and the benchmark harness
+# --------------------------------------------------------------------------
+
+#: the harness's run lengths here: only read counts and trials are cut (its
+#: whitelists and kernel shapes stay whole: K 96 / 8,192 / 737,280, B 2^17
+#: to 2^22)
+BENCH_CUT = dict(n_reads=1_000_000, n_reads_secondary=500_000, headline_trials=1,
+                 secondary_trials=1, subsample_trials=1)
+#: (K, L, B) of the harness's 737K device leg held to the plain version here
+#: (its smaller rate batch)
+BIGK_LEG_SHAPE = (737_280, 16, 1 << 17)
+
+
+def check_colmerge_only(what: str, counts: dict) -> int:
+    """``counts`` (``scheme``, ``launches``, ``plain_calls``) of a matcher
+    that must have launched ``colmerge_top2`` and called no plain version;
+    returns its launches."""
+    if counts.get("scheme") != "colmerge_top2" or counts.get("launches", 0) < 1 or (
+            counts.get("plain_calls")):
+        raise AssertionError(f"{what}: no colmerge_top2 launch or a plain call: {counts}")
+    return int(counts["launches"])
+
+
+def phase_entry_points(card: str, work: Path) -> dict:
+    """``graft_entry.entry()`` on the card (its ``(assigned, best, next)``
+    equal to the same step on the CPU, ``assigned`` to the NumPy spec), then
+    ``dryrun_multichip(1)`` and ``dryrun_multichip(2, [cuda:0] * 2)`` (a
+    1 x 2 whitelist mesh on the one card): every sharded step launches
+    ``colmerge_top2`` and calls no plain version.  ``FQTK_CACHE_DIR`` is
+    set to a fresh ``work / "cache"`` for this phase and the next."""
+    import os
+
+    from fqtk_tpu_torch import graft_entry
+    from fqtk_tpu_torch.ops.matcher import ExpectedSet, assign_batch_np
+    from fqtk_tpu_torch.runtime import demux as dm
+
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    os.environ["FQTK_CACHE_DIR"] = str(work / "cache")
+    dm._ASSIGN_FN_CACHE.clear()
+    t0 = time.perf_counter()
+    fn, (obs,) = graft_entry.entry()
+    got = [o.cpu().numpy().astype(np.int64) for o in fn(obs)]
+    cpu_fn, _ = graft_entry.entry(device="cpu")
+    want = [o.numpy().astype(np.int64) for o in cpu_fn(obs)]
+    es = ExpectedSet.from_barcodes(graft_entry._whitelist(96, 17))
+    idx, _, _ = assign_batch_np(obs, es, 1, 2)
+    if got[0].shape != (8192,) or not np.array_equal(got[0], np.where(idx < 0, 96, idx)):
+        raise AssertionError("entry(): assigned differs from the NumPy spec")
+    for field, g, w in zip(("assigned", "best", "next"), got, want):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"entry(): {field} on the card differs from the CPU run")
+    log(f"[entry] entry() on cuda: K 96, L 17, B 8,192 raw-byte rows through make_assign_fn "
+        f"(plain PyTorch, no kernel): {int((got[0] < 96).sum())} assigned, equal to the NumPy "
+        f"spec and (assigned, best, next) to the CPU run; {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    runs = {}
+    for n, devices in ((1, None), (2, one_card(2))):
+        t0 = time.perf_counter()
+        counts = graft_entry.dryrun_multichip(n, devices=devices)
+        wall = time.perf_counter() - t0
+        launched = {step: check_colmerge_only(f"dryrun_multichip({n}) {step}", counts[step])
+                    for step in ("small_k", "bigk_sharded", "bigk_sharded_kernels")}
+        if n > 1:
+            launched["driver"] = check_colmerge_only(f"dryrun_multichip({n}) driver",
+                                                     counts["driver"])
+        runs[n] = dict(launches=launched, wall_s=wall, driver=counts["driver"])
+        log(f"[entry] dryrun_multichip({n}{'' if devices is None else ', [cuda:0] * 2'}): "
+            f"colmerge_top2 launches per step {launched}, 0 plain calls; the driver's "
+            f"matcher {counts['driver'] or 'on the host (placement)'}, the pigeonhole "
+            f"driver on the host; {wall:.1f} s ({card})")
+    return runs
+
+
+def phase_bench(card: str, work: Path) -> dict:
+    """``python -m fqtk_tpu_torch.bench``'s ``main`` in this process at the
+    run lengths of :data:`BENCH_CUT` (its two JSON lines go to stderr, its
+    record under ``work``, removed after it): exit 0 (no config recorded an
+    error, every e2e run's ``total_templates`` held), and the mid-K leg and
+    the 737K device leg each launched ``colmerge_top2`` and called no plain
+    version.  Then ``colmerge_top2`` against its plain version at
+    :data:`BIGK_LEG_SHAPE`, with its times and bound."""
+    import contextlib
+
+    from fqtk_tpu_torch import bench
+    from fqtk_tpu_torch.ops.hopper_matcher import hopper_state_from_numpy
+
+    record = work / "bench_torch.json"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = bench.main(record_path=record, **BENCH_CUT)
+    wall = time.perf_counter() - t0
+    full = json.loads(record.read_text())
+    if rc != 0:
+        raise AssertionError(f"the harness exited {rc}: {bench.failed_configs(full)}")
+    by_name = {c["name"]: c for c in full["configs"]}
+    midk = check_colmerge_only("mid_K_8192_16bp_mm1_d2", by_name["mid_K_8192_16bp_mm1_d2"])
+    bigk = check_colmerge_only("single_cell_737K_whitelist_16B.device_pallas",
+                               by_name["single_cell_737K_whitelist_16B"]["device_pallas"])
+    kd = full["kernel_device"]
+    log(f"[bench] harness at {BENCH_CUT}: {wall:.1f} s, exit {rc}; headline "
+        f"{full['value']} reads/s (vs_baseline {full['vs_baseline']}); kernel K 96 "
+        f"{full['kernel_assign_reads_per_sec']} reads/s, device-only "
+        f"{kd['device_only_reads_per_sec']}, MFU {kd['device_mfu']} of {kd['matmul_precision']} "
+        f"({kd['wall_s']} s) ({card})")
+    for c in full["configs"]:
+        nums = {k: v for k, v in c.items() if k not in ("name", "note", "engine", "level")}
+        log(f"[bench] {c['name']}: {json.dumps(nums)} ({card})")
+    log(f"[bench] colmerge_top2 launches: mid-K leg {midk}, 737K device leg {bigk}, 0 plain "
+        "calls")
+
+    # the 737K device leg's kernel against its plain version at its shape
+    kernel, plain = kernel_runs()["colmerge_top2"]
+    k, length, b = BIGK_LEG_SHAPE
+    es, packed = kernel_case(k, length, b, seed=1010)
+    obs = torch.from_numpy(packed).cuda()
+    state = hopper_state_from_numpy(es, "cuda", "colmerge_top2")
+    got = kernel(obs, state)
+    t1 = time.perf_counter()
+    want = plain(obs, state)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    err = compare("colmerge_top2", got, want, f"K={k} L={length} B={b} (the 737K leg)")
+    ms = cuda_median_ms(lambda: kernel(obs, state), 5)
+    row = shape_row(k, length, obs, state, ms, plain_ms)
+    log(f"[bench] K={k} L={length} B={b}: colmerge_top2 {ms:.4f} ms (median of 5), plain "
+        f"{plain_ms:.1f} ms (one call, host clock), equal bit for bit; bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({100 * row['bound_ms'] / ms:.1f}% "
+        f"reached); torch._int_mm, counts only, {row['library_ms']:.4f} ms ({card})")
+    del state, obs
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return dict(wall_s=wall, midk_launches=midk, bigk_launches=bigk, bigk_row=row,
+                bigk_err=err, headline=full["value"],
+                configs={c["name"]: c.get("wall_s") for c in full["configs"]})
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1541,6 +1697,13 @@ def main() -> int:
     shutil.rmtree(WORK.parent / "smoke_ranks")
     log(f"[scale-out] phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 10: the driver entry points and the harness (each dry-run step
+    # and each harness leg builds its own matcher: counts from 0)
+    t0 = time.perf_counter()
+    er = phase_entry_points(card, WORK.parent / "smoke_bench")
+    br = phase_bench(card, WORK.parent / "smoke_bench")
+    log(f"[bench] phase 10 took {time.perf_counter() - t0:.1f} s")
+
     # a module of the JAX package, or jax itself, must not have been loaded
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "fqtk_tpu"
@@ -1554,7 +1717,9 @@ def main() -> int:
         "placement": pr["placements"], "python_io_reads_per_s": py["rates"],
         "mesh_window_call_ms": mw["call_ms"], "mesh_window_warm_ms": mw["warm_ms"],
         "single_cell_window_warm_ms": sc["warm_ms"],
-        "mesh_demux": md, "two_processes": tp, "card": card}))
+        "mesh_demux": md, "two_processes": tp, "entry_points": er,
+        "bench_wall_s": br["wall_s"], "bench_config_wall_s": br["configs"],
+        "bench_headline_reads_per_s": br["headline"], "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1563,6 +1728,10 @@ def main() -> int:
         if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE
     )
     window_shape = sc["shapes"][-1]  # the single-cell window's dedup bucket
+    midk_shape = next(  # phase 3's, at the mid-K leg's call shape
+        s for s in kr["shapes"]["colmerge_top2"]
+        if (s["k"], s["length"], s["b"]) == (8192, 16, 131_072)
+    )
     rows = [
         dict(name="colmerge_top2", launches=dr["launches"],
              launches_per="2,000,000-read 96-sample demux",
@@ -1583,6 +1752,16 @@ def main() -> int:
                           "mesh (one launch a shard of 3,397,440 barcodes, both on cuda:0)",
              max_abs_err=mw["max_abs_err"], **{key: mw["shapes"][0][key] for key in keys},
              shapes=mw["shapes"]),
+        dict(name="colmerge_top2", launches=br["midk_launches"],
+             launches_per="the harness's mid-K leg (mid_K_8192_16bp_mm1_d2: K 8,192, L 16, "
+                          "B 2^17, then 2^18 and 2^19 for the rate)",
+             max_abs_err=kr["max_abs_err"]["colmerge_top2"],
+             **{key: midk_shape[key] for key in keys}, shapes=[midk_shape]),
+        dict(name="colmerge_top2", launches=br["bigk_launches"],
+             launches_per="the harness's 737K device leg (K 737,280, L 16, B 2^17 and 2^18 "
+                          "for the rate, then the clustered windows' dedup buckets)",
+             max_abs_err=br["bigk_err"], **{key: br["bigk_row"][key] for key in keys},
+             shapes=[br["bigk_row"]]),
         dict(name="tile_top2", classes=16, launches=sc["mask"]["launches"],
              launches_per="phase 5's 16-class call (raw bytes, B 16,384)",
              max_abs_err=sc["mask"]["max_abs_err"],

@@ -4,7 +4,9 @@ the 16-class input of nib4 rows and raw bytes) and the kernel lab's
 ``clamp8_top2``) against their plain PyTorch versions and the NumPy spec,
 the scan route (``make_assign_fn``) against the NumPy spec, and the
 device mesh (``parallel/mesh.py``, every tile on ``cuda:0``) against its
-CPU run and the spec, on the card.  Marked
+CPU run and the spec, the driver entry points (``graft_entry.py``) and the
+harness's two kernel legs (``bench.py``: mid-K and the 737K device leg at
+their full sizes), on the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -818,6 +820,64 @@ def test_mesh_demux_on_card(tmp_path, monkeypatch, threshold):
             assert res.matcher["plain_calls"] == 0 and res.matcher["tile_top2_launches"] == 0
     demux._ASSIGN_FN_CACHE.clear()
     assert outs["native"] == outs["numpy"]
+
+
+def _check_device_leg(entry, k_counted):
+    """A harness device leg: ``colmerge_top2`` launched, no plain call, a
+    positive device-only rate and, on an H100, an MFU."""
+    from fqtk_tpu_torch import bench
+
+    assert entry["scheme"] == "colmerge_top2" and entry["launches"] > 0, entry
+    assert entry["plain_calls"] == 0 and entry["k_counted"] == k_counted
+    assert entry["device_only_reads_per_sec"] > 0 and entry["achieved_tops"] > 0
+    if torch.cuda.get_device_name(0) in bench._PEAK_OPS:
+        assert 0 < entry["device_mfu"] < 1
+
+
+@pytest.mark.gpu
+def test_bench_midk_leg_on_card():
+    """``fqtk_tpu_torch.bench``'s mid-K leg at its full size (K 8,192, L 16,
+    B 2^17, the rate between 2^18 and 2^19) through ``colmerge_top2``."""
+    _need_card()
+    from fqtk_tpu_torch import bench
+
+    got = bench.bench_midk_config(device="cuda")
+    assert got["name"] == "mid_K_8192_16bp_mm1_d2" and got["reads_per_sec"] > 0
+    _check_device_leg(got, 8192)
+
+
+@pytest.mark.gpu
+def test_bench_bigk_device_leg_on_card():
+    """The 737K config's device leg at its full size (K 737,280, the rate
+    between B 2^17 and 2^18, the clustered windows through the dedup):
+    ``colmerge_top2``, no error recorded."""
+    _need_card()
+    from fqtk_tpu_torch import bench
+
+    got = bench.bench_bigk_config(device="cuda")
+    dev = got["device_pallas"]
+    assert "error" not in dev, dev
+    _check_device_leg(dev, 737_280)
+    assert dev["clustered_8k_cells_dedup_reads_per_sec"] > 0
+    assert bench.failed_configs({"configs": [got]}) == []
+
+
+@pytest.mark.gpu
+def test_graft_entry_on_card(tmp_path, monkeypatch):
+    """``graft_entry.entry()`` on the card equals its CPU run, and
+    ``dryrun_multichip(2, [cuda:0] * 2)`` launches ``colmerge_top2`` in
+    every sharded step with no plain call."""
+    _need_card()
+    monkeypatch.setenv("FQTK_CACHE_DIR", str(tmp_path / "cache"))
+    from fqtk_tpu_torch import graft_entry
+
+    fn, (obs,) = graft_entry.entry()
+    cpu_fn, _ = graft_entry.entry(device="cpu")
+    for got, want in zip(fn(obs), cpu_fn(obs)):
+        assert torch.equal(got.cpu(), want)
+    counts = graft_entry.dryrun_multichip(2, devices=[torch.device("cuda", 0)] * 2)
+    for step in ("small_k", "bigk_sharded", "bigk_sharded_kernels", "driver"):
+        assert counts[step]["launches"] > 0 and counts[step]["plain_calls"] == 0, (step, counts)
 
 
 def test_every_cu_has_an_entry_point():

@@ -98,6 +98,7 @@ def test_scan_covers_the_package():
                  "fqtk_tpu_torch/parallel/merge.py", "fqtk_tpu_torch/parallel/mesh.py",
                  "fqtk_tpu_torch/parallel/distributed.py", "fqtk_tpu_torch/lab/kernel_lab.py",
                  "fqtk_tpu_torch/core/bitenc.py", "fqtk_tpu_torch/core/barcode_matcher.py",
+                 "fqtk_tpu_torch/graft_entry.py", "fqtk_tpu_torch/bench.py",
                  "chip_smoke.py"):
         assert must in names
 
@@ -589,6 +590,63 @@ def test_small_copies(tmp_path, piece):
                 pass
         assert dict(ours.counts) == dict(theirs.counts) == {"assign": 2, "submit": 1}
         assert set(ours.summary()) == set(theirs.summary())
+
+
+#: the driver entry points' and the harness's generators: verbatim copies of
+#: ``__graft_entry__.py``'s and ``bench.py``'s (root modules, imported here only)
+GENERATORS = {
+    "_whitelist": "graft", "_observed": "graft", "make_whitelist": "bench",
+    "write_metadata": "bench", "write_inputs": "bench", "write_single_end_inputs": "bench",
+}
+
+
+def _root_module(name):
+    sys.path.insert(0, str(ROOT))
+    try:
+        return __import__({"graft": "__graft_entry__", "bench": "bench"}[name])
+    finally:
+        sys.path.remove(str(ROOT))
+
+
+@pytest.mark.parametrize("fn", sorted(GENERATORS))
+def test_generator_copies(tmp_path, fn):
+    import inspect
+
+    from fqtk_tpu_torch import bench as port_bench
+    from fqtk_tpu_torch import graft_entry as port_graft
+
+    where = GENERATORS[fn]
+    ours = getattr(port_graft if where == "graft" else port_bench, fn)
+    theirs = getattr(_root_module(where), fn)
+    assert inspect.getsource(ours) == inspect.getsource(theirs)
+    if fn == "_whitelist":
+        for k, length in ((96, 17), (16, 17), (5, 3)):
+            assert ours(k, length) == theirs(k, length)
+    elif fn == "_observed":
+        barcodes = port_graft._whitelist(96, 17)
+        for batch in (8, 50, 8192):
+            np.testing.assert_array_equal(ours(batch, 17, barcodes), theirs(batch, 17, barcodes))
+    elif fn == "make_whitelist":
+        assert ours(96, 17) == theirs(96, 17)
+        assert ours(16, 17, seed=23) == theirs(16, 17, seed=23)
+    elif fn == "write_metadata":
+        barcodes = port_bench.make_whitelist(16, 17, seed=21)
+        assert ours(tmp_path, barcodes, "a.tsv").read_bytes() == theirs(
+            tmp_path, barcodes, "b.tsv").read_bytes()
+    elif fn == "write_inputs":
+        barcodes = port_bench.make_whitelist(96, 17)
+        (tmp_path / "a").mkdir()
+        (tmp_path / "b").mkdir()
+        got, _ = ours(tmp_path / "a", barcodes, n_reads=1200)
+        want, _ = theirs(tmp_path / "b", barcodes, n_reads=1200)
+        for n in ("i1", "r1", "r2", "i2"):
+            assert gzip.decompress(got[n].read_bytes()) == gzip.decompress(want[n].read_bytes())
+    else:
+        barcodes = port_bench.make_whitelist(16, 17, seed=23)
+        for var in (False, True):
+            got, _ = ours(tmp_path, barcodes, 1500, f"a{var}", var_template=var)
+            want, _ = theirs(tmp_path, barcodes, 1500, f"b{var}", var_template=var)
+            assert gzip.decompress(got.read_bytes()) == gzip.decompress(want.read_bytes())
 
 
 # --------------------------------------------------------------------------
