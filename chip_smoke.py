@@ -109,6 +109,19 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              ``colmerge_top2`` with no plain call; each config's numbers
              and wall time.  Then ``colmerge_top2`` against its plain
              version at the 737K leg's shape (K 737,280, B 131,072).
+11. measuring tools — every tool of ``fqtk_tpu_torch/scripts/`` at a cut
+             (``FQTK_CACHE_DIR`` under its work directory): ``profile_e2e``
+             on ``headline`` at 500,000 reads, one trial, both arms (the
+             device arm, ``FQTK_HOST_MATCHER_MAX_K=0``, launches
+             ``colmerge_top2`` with no plain call; every run's outputs
+             identical); ``ab_e2e midk`` at 300,000 reads over
+             ``FQTK_HOST_MATCHER_MAX_K=0`` and ``=100000`` (outputs and
+             ``demux-metrics.txt`` identical); ``core_scaling`` at 200,000
+             reads on 1 and all cores; ``scaling_bench`` at 200,000 reads a
+             shard (rank 0's shard-0 outputs equal the solo run's, the merged
+             counts the two shards' sum); ``measure_baseline`` at 500,000
+             reads.  ``BASELINE_MEASURED.json``, ``CORE_SCALING_LOCAL.json``
+             and ``SCALING_LOCAL.json`` keep their SHA-256.
 
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
@@ -119,7 +132,8 @@ as ``nvidia-smi`` names it, preceded by a ``{"kernels": [...]}`` line (per
 kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
 rows; the 16-class ``colmerge_top2`` row's launches are phase 8's
 ``--engine pallas`` run's, the shard row's phase 9's window's, two more
-``colmerge_top2`` rows phase 10's harness legs'): launches on
+``colmerge_top2`` rows phase 10's harness legs', two more phase 11's
+device arms'): launches on
 its path, max abs error, kernel /
 plain / bound / library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
@@ -1626,6 +1640,132 @@ def phase_bench(card: str, work: Path) -> dict:
                 configs={c["name"]: c.get("wall_s") for c in full["configs"]})
 
 
+# --------------------------------------------------------------------------
+# phase 11: the host measuring tools
+# --------------------------------------------------------------------------
+
+#: the tools' cuts here (reads; one trial each)
+PROFILE_READS = 500_000
+AB_READS = 300_000
+CORE_READS = 200_000
+SHARD_READS = 200_000
+BASELINE_READS = 500_000
+#: ab_e2e's arms at mid-K: the device matcher, then the host matcher
+AB_ARMS = ["FQTK_HOST_MATCHER_MAX_K=0", "FQTK_HOST_MATCHER_MAX_K=100000"]
+#: the JAX round's records at the root, which no tool may write
+ROOT_RECORDS = ("BASELINE_MEASURED.json", "CORE_SCALING_LOCAL.json", "SCALING_LOCAL.json")
+
+
+def root_record_digests() -> dict:
+    import hashlib
+
+    return {n: hashlib.sha256((ROOT / n).read_bytes()).hexdigest() for n in ROOT_RECORDS}
+
+
+def fmt_split(r: dict) -> str:
+    return (f"wall {r['wall_s']:.3f} s, {r['reads_per_sec']:,.0f} reads/s; cores*wall "
+            f"{r['cores_x_wall']:.2f} = counted_io {r['counted_io_s']:.2f} + uncounted_cpu "
+            f"{r['uncounted_cpu_s']:.2f} + idle {r['idle_s']:.2f} core-s")
+
+
+def phase_tools(card: str, work: Path) -> dict:
+    """Every tool of ``fqtk_tpu_torch/scripts/`` in this process on the card
+    (their children pinned), at a cut, each record under ``work``:
+    ``profile_e2e`` on ``headline`` (both arms; the device arm launches
+    ``colmerge_top2`` with no plain call), ``ab_e2e midk`` over
+    :data:`AB_ARMS` (the arms' outputs identical; the device arm launches
+    ``colmerge_top2``, the host arm runs no device matcher),
+    ``core_scaling`` on 1 and all cores, ``scaling_bench`` (rank 0's shard-0
+    outputs equal the solo run's, the merged counts the shards' sum) and
+    ``measure_baseline``.  The root records of :data:`ROOT_RECORDS` keep
+    their SHA-256.  ``FQTK_CACHE_DIR`` is a fresh ``work / "cache"``."""
+    import contextlib
+    import os
+
+    from fqtk_tpu_torch.scripts import (
+        ab_e2e,
+        core_scaling,
+        measure_baseline,
+        profile_e2e,
+        scaling_bench,
+    )
+
+    before = root_record_digests()
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    os.environ["FQTK_CACHE_DIR"] = str(work / "cache")
+    for var in ("FQTK_HOST_MATCHER_MAX_K", "FQTK_MEASURE_CROSSOVER"):
+        os.environ.pop(var, None)
+    walls = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        prof = profile_e2e.run("headline", PROFILE_READS, "cuda", trials=1,
+                               record_path=work / "profile_e2e_headline.json")
+        walls["profile_e2e"] = time.perf_counter() - t0
+        dev = next(r for r in prof["runs"] if r["arm"] == "device")
+        prof_launches = check_colmerge_only("profile_e2e device arm", dev["matcher"])
+        for r in prof["runs"]:
+            log(f"[tools] profile_e2e headline {PROFILE_READS:,} reads [{r['arm']}]: "
+                f"{fmt_split(r)}; matcher {r['matcher'] or 'host'} ({card})")
+
+        t0 = time.perf_counter()
+        n_saved = ab_e2e.N
+        ab_e2e.N = AB_READS
+        try:
+            ab = ab_e2e.run("midk", 1, AB_ARMS, "cuda", record_path=work / "ab_e2e_midk.json")
+        finally:
+            ab_e2e.N = n_saved
+        walls["ab_e2e"] = time.perf_counter() - t0
+        dev_arm, host_arm = (ab["arms"][a] for a in AB_ARMS)
+        ab_launches = check_colmerge_only("ab_e2e midk device arm", dev_arm["matcher"])
+        if host_arm["matcher"]:
+            raise AssertionError(f"ab_e2e midk host arm ran a device matcher: {host_arm}")
+        if dev_arm["outputs_sha256"] != host_arm["outputs_sha256"]:
+            raise AssertionError("ab_e2e midk: the arms' outputs differ")
+        log(f"[tools] ab_e2e midk {AB_READS:,} reads: device arm "
+            f"{dev_arm['best_reads_per_sec']:,.0f} reads/s ({ab_launches} colmerge_top2 "
+            f"launches, 0 plain), host arm {host_arm['best_reads_per_sec']:,.0f}; outputs "
+            f"and demux-metrics.txt identical ({card})")
+
+        t0 = time.perf_counter()
+        ncores = len(os.sched_getaffinity(0))
+        cs = core_scaling.run(CORE_READS, 1, cores=[1, ncores], device="cuda",
+                              record_path=work / "core_scaling.json")
+        walls["core_scaling"] = time.perf_counter() - t0
+        log(f"[tools] core_scaling {CORE_READS:,} reads, cores 1 and {ncores}: " + "; ".join(
+            f"{k} {cs[k]['reads_per_sec_by_cores']} slope "
+            f"{cs[k]['slope_reads_per_sec_per_core']}" for k in core_scaling.KINDS)
+            + f"; pins_enforced {cs['pins_enforced']}, cpu/wall {cs['cpu_per_wall_max']} ({card})")
+
+        t0 = time.perf_counter()
+        sb = scaling_bench.run(SHARD_READS, "cuda", trials=1, record_path=work / "scaling.json")
+        walls["scaling_bench"] = time.perf_counter() - t0
+        log(f"[tools] scaling_bench {SHARD_READS:,} reads a shard, pins {sb['pins']}: "
+            f"coordination_efficiency {sb['coordination_efficiency']}, samebox "
+            f"{sb['samebox_2proc_vs_1proc_throughput']}, pins_enforced {sb['pins_enforced']} "
+            f"(cpu/wall {sb['cpu_per_wall_max_half']}); rank 0's shard 0 equal to the solo "
+            f"run, merged counts the shards' sum ({card})")
+
+        t0 = time.perf_counter()
+        mb = measure_baseline.run(threads=16, reads=BASELINE_READS, trials=1, device="cuda",
+                                  record_path=work / "baseline_measured.json")
+        walls["measure_baseline"] = time.perf_counter() - t0
+        log(f"[tools] measure_baseline {BASELINE_READS:,} reads: {mb['value']:,} reads/s "
+            f"({mb['host']})")
+    after = root_record_digests()
+    if after != before:
+        raise AssertionError(f"a tool changed a root record: {before} -> {after}")
+    log(f"[tools] walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"{', '.join(ROOT_RECORDS)} unchanged")
+    return dict(walls=walls, profile_launches=prof_launches, ab_launches=ab_launches,
+                profile=[{k: r[k] for k in ("arm", "reads_per_sec", "uncounted_cpu_s", "idle_s")}
+                         for r in prof["runs"]],
+                coordination_efficiency=sb["coordination_efficiency"],
+                pins_enforced=cs["pins_enforced"] and sb["pins_enforced"],
+                baseline=mb["value"])
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1704,6 +1844,12 @@ def main() -> int:
     br = phase_bench(card, WORK.parent / "smoke_bench")
     log(f"[bench] phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 11: the host measuring tools (each run builds its own matcher:
+    # counts from 0)
+    t0 = time.perf_counter()
+    tr = phase_tools(card, WORK.parent / "smoke_tools")
+    log(f"[tools] phase 11 took {time.perf_counter() - t0:.1f} s")
+
     # a module of the JAX package, or jax itself, must not have been loaded
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "fqtk_tpu"
@@ -1719,7 +1865,7 @@ def main() -> int:
         "single_cell_window_warm_ms": sc["warm_ms"],
         "mesh_demux": md, "two_processes": tp, "entry_points": er,
         "bench_wall_s": br["wall_s"], "bench_config_wall_s": br["configs"],
-        "bench_headline_reads_per_s": br["headline"], "card": card}))
+        "bench_headline_reads_per_s": br["headline"], "tools": tr, "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1762,6 +1908,16 @@ def main() -> int:
                           "for the rate, then the clustered windows' dedup buckets)",
              max_abs_err=br["bigk_err"], **{key: br["bigk_row"][key] for key in keys},
              shapes=[br["bigk_row"]]),
+        dict(name="colmerge_top2", launches=tr["profile_launches"],
+             launches_per=f"profile_e2e headline's device arm ({PROFILE_READS:,} reads, "
+                          "FQTK_HOST_MATCHER_MAX_K=0; numbers at phase 3's K 96 shape)",
+             max_abs_err=kr["max_abs_err"]["colmerge_top2"],
+             **{key: main_shape[key] for key in keys}, shapes=[main_shape]),
+        dict(name="colmerge_top2", launches=tr["ab_launches"],
+             launches_per=f"ab_e2e midk's device arm ({AB_READS:,} reads, K 8,192, L 16; "
+                          "numbers at phase 3's K 8,192 shape)",
+             max_abs_err=kr["max_abs_err"]["colmerge_top2"],
+             **{key: midk_shape[key] for key in keys}, shapes=[midk_shape]),
         dict(name="tile_top2", classes=16, launches=sc["mask"]["launches"],
              launches_per="phase 5's 16-class call (raw bytes, B 16,384)",
              max_abs_err=sc["mask"]["max_abs_err"],

@@ -75,18 +75,36 @@ RECORD_PATH = _REPO_ROOT / "build" / "fqtk_tpu_torch" / "bench_torch.json"
 Device = Union[str, torch.device]
 
 
-def rust_baseline() -> tuple:
-    """(reads_per_sec, note) — the pinned proxy of ``BASELINE_MEASURED.json``
-    (read only) when present."""
-    p = _REPO_ROOT / "BASELINE_MEASURED.json"
-    if p.exists():
+#: the pin that ``python -m fqtk_tpu_torch.scripts.measure_baseline`` writes
+BASELINE_PATH = RECORD_PATH.parent / "baseline_measured.json"
+
+
+def host_info(device: Device = "cuda") -> dict:
+    """The machine a record is taken on: the card as ``nvidia-smi`` names it
+    with its power limit (``"cpu"`` off the card) and ``os.cpu_count()``."""
+    on_card = torch.device(device).type == "cuda"
+    return {"card": card_line() if on_card else "cpu", "cpu_count": os.cpu_count()}
+
+
+def rust_baseline(device: Device = "cuda") -> tuple:
+    """(reads_per_sec, note) — the pinned proxy of :data:`BASELINE_PATH`
+    when present, else of the root ``BASELINE_MEASURED.json`` (read only,
+    another host's), else the estimate.  The note names the file read and
+    says whether its pin was taken on this card's host (:func:`host_info`)."""
+    for p in (BASELINE_PATH, _REPO_ROOT / "BASELINE_MEASURED.json"):
+        if not p.exists():
+            continue
         d = json.loads(p.read_text())
+        if p == BASELINE_PATH and d.get("host") == host_info(device):
+            where = "on this card's host"
+        else:
+            where = f"on another host ({d.get('host', 'unnamed')}), not on this card's host"
         return float(d["value"]), (
             "vs measured reference-architecture proxy on identical inputs in "
             "the same run (interleaved trials both sides); pinned best-ever "
             f"proxy {d['value']/1e6:.2f}M reads/s, {d['threads']}-thread "
-            "config, under vs_pinned_best_proxy, was measured on another "
-            f"host ({d.get('host', 'unnamed')}), not on this card's host"
+            f"config, under vs_pinned_best_proxy, read from "
+            f"{os.path.relpath(p, _REPO_ROOT)}, was measured {where}"
         )
     return RUST_BASELINE_READS_PER_SEC_ESTIMATE, (
         "vs est. 1.5M reads/s 16-thread Rust fqtk (unmeasured; no Rust "
@@ -1153,7 +1171,7 @@ def run_bench(device: Device = "cuda", n_reads: int = N_READS,
         guarded("subsample_PE_fraction0.3", bench_subsample_config, tmp, paths,
                 subsample_trials)
 
-    baseline_rps, baseline_note = rust_baseline()
+    baseline_rps, baseline_note = rust_baseline(device)
     return {
         "metric": "demux_e2e_reads_per_sec",
         "value": round(e2e_rps, 1),

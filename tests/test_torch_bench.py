@@ -293,7 +293,9 @@ def test_midk_and_kernel_keys_on_cpu():
 
 
 def small_main(monkeypatch, tmp_path, **patch):
-    """``main`` on the CPU at a few thousand reads, the kernel legs small."""
+    """``main`` on the CPU at a few thousand reads, the kernel legs small;
+    no pin of the port's own (``BASELINE_PATH``), so the root file's is read."""
+    monkeypatch.setattr(bench, "BASELINE_PATH", tmp_path / "no_pin.json")
     monkeypatch.setattr(bench, "bench_kernel", functools.partial(bench.bench_kernel, **SMALL_KERNEL))
     monkeypatch.setattr(bench, "bench_midk_config",
                         functools.partial(bench.bench_midk_config, **SMALL_MIDK))

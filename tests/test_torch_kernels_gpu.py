@@ -6,7 +6,8 @@ the scan route (``make_assign_fn``) against the NumPy spec, and the
 device mesh (``parallel/mesh.py``, every tile on ``cuda:0``) against its
 CPU run and the spec, the driver entry points (``graft_entry.py``) and the
 harness's two kernel legs (``bench.py``: mid-K and the 737K device leg at
-their full sizes), on the card.  Marked
+their full sizes) and the device arms of the measuring tools
+(``fqtk_tpu_torch.scripts``: ``profile_e2e``, ``ab_e2e`` at ``midk``), on the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -878,6 +879,44 @@ def test_graft_entry_on_card(tmp_path, monkeypatch):
     counts = graft_entry.dryrun_multichip(2, devices=[torch.device("cuda", 0)] * 2)
     for step in ("small_k", "bigk_sharded", "bigk_sharded_kernels", "driver"):
         assert counts[step]["launches"] > 0 and counts[step]["plain_calls"] == 0, (step, counts)
+
+
+@pytest.mark.gpu
+def test_profile_e2e_device_arm_on_card(tmp_path, monkeypatch):
+    """``profile_e2e`` on ``headline`` at 100,000 reads: the device arm
+    (``FQTK_HOST_MATCHER_MAX_K=0``) launches ``colmerge_top2`` with no plain
+    call, and its outputs equal the ``as_is`` (host matcher) arm's."""
+    _need_card()
+    monkeypatch.setenv("FQTK_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.delenv("FQTK_HOST_MATCHER_MAX_K", raising=False)
+    from fqtk_tpu_torch.scripts import profile_e2e
+
+    rec = profile_e2e.run("headline", 100_000, "cuda", trials=1, record_path=tmp_path / "p.json")
+    as_is, dev = rec["runs"]
+    m = dev["matcher"]
+    assert m["scheme"] == "colmerge_top2" and m["launches"] > 0 and m["plain_calls"] == 0, m
+    assert dev["outputs_sha256"] == as_is["outputs_sha256"]
+    assert dev["counted_io_s"] + dev["uncounted_cpu_s"] + dev["idle_s"] == pytest.approx(
+        dev["cores_x_wall"])
+
+
+@pytest.mark.gpu
+def test_ab_e2e_midk_device_arm_on_card(tmp_path, monkeypatch):
+    """``ab_e2e midk`` at 100,000 reads: the ``FQTK_HOST_MATCHER_MAX_K=0``
+    arm launches ``colmerge_top2`` with no plain call, the ``=100000`` arm
+    runs the host matcher, and their outputs are identical."""
+    _need_card()
+    monkeypatch.setenv("FQTK_CACHE_DIR", str(tmp_path / "cache"))
+    from fqtk_tpu_torch.scripts import ab_e2e
+
+    monkeypatch.setattr(ab_e2e, "N", 100_000)
+    arms = ["FQTK_HOST_MATCHER_MAX_K=0", "FQTK_HOST_MATCHER_MAX_K=100000"]
+    rec = ab_e2e.run("midk", 1, arms, "cuda", record_path=tmp_path / "ab.json")
+    dev, host = (rec["arms"][a] for a in arms)
+    m = dev["matcher"]
+    assert m["scheme"] == "colmerge_top2" and m["launches"] > 0 and m["plain_calls"] == 0, m
+    assert host["matcher"] == {}
+    assert dev["outputs_sha256"] == host["outputs_sha256"]
 
 
 def test_every_cu_has_an_entry_point():

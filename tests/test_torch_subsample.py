@@ -12,7 +12,6 @@ import threading
 import time
 
 import numpy as np
-import pytest
 
 from fqtk_tpu_torch.io import native as native_io
 from fqtk_tpu_torch.runtime import subsample as sub
