@@ -122,6 +122,19 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              counts the two shards' sum); ``measure_baseline`` at 500,000
              reads.  ``BASELINE_MEASURED.json``, ``CORE_SCALING_LOCAL.json``
              and ``SCALING_LOCAL.json`` keep their SHA-256.
+12. campaign — ``fqtk_tpu_torch.scripts.deep_campaign`` at offset 0 with
+             40 demux, 24 matcher, 16 subsample, 16 malformed (two per
+             corruption class) and 40 dedup cases on the card: native
+             engine against the NumPy engine on randomized scenarios (a
+             quarter of the non-big-K ones placed on the device:
+             ``colmerge_top2`` through the whole loop), the host matchers
+             and both kernels, each forced, on raw bytes and bit2 rows
+             against the NumPy spec, native against Python subsample, the
+             corruption classes through the card host's own build of the
+             native engine, and the window dedup (every fourth window through
+             the Hopper matcher) against the unwrapped call.  No failure, no
+             leg that ran nothing, no plain call, both kernels launched,
+             within 120 s.
 
 The build fails the run if a kernel on the tensor-core engine
 (``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
@@ -133,7 +146,7 @@ kernel and input form (``classes`` 4: bit2 rows; 16: nib4 and raw-byte
 rows; the 16-class ``colmerge_top2`` row's launches are phase 8's
 ``--engine pallas`` run's, the shard row's phase 9's window's, two more
 ``colmerge_top2`` rows phase 10's harness legs', two more phase 11's
-device arms'): launches on
+device arms', and one row per kernel and input form phase 12's): launches on
 its path, max abs error, kernel /
 plain / bound / library ms at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.  Logs of the demux runs go to
@@ -1766,6 +1779,77 @@ def phase_tools(card: str, work: Path) -> dict:
                 baseline=mb["value"])
 
 
+# --------------------------------------------------------------------------
+# phase 12: the differential campaign on the card
+# --------------------------------------------------------------------------
+
+#: the campaign's cut here: (demux, matcher, subsample, malformed, dedup)
+#: cases, two of each corruption class, at a fixed seed offset
+CAMPAIGN_COUNTS = (40, 24, 16, 16, 40)
+CAMPAIGN_OFFSET = 0
+#: the phase's wall-time limit, seconds
+CAMPAIGN_LIMIT_S = 120.0
+
+
+def phase_campaign(card: str) -> dict:
+    """``fqtk_tpu_torch.scripts.deep_campaign.run`` at
+    :data:`CAMPAIGN_COUNTS` on ``cuda`` (its lines on stderr), with no
+    failure, within :data:`CAMPAIGN_LIMIT_S`.  The campaign counts as a
+    failure a leg that ran nothing, a plain call on ``cuda``, and a kernel
+    that its device legs never launched (``colmerge_top2``: the
+    device-placed demux scenarios, the matcher leg on both input forms, the
+    dedup leg's Hopper windows; ``tile_top2``: the matcher leg on both
+    forms).  Returns each kernel and input form's launches and largest
+    difference from the NumPy spec over (assigned, best, next)."""
+    import contextlib
+
+    from fqtk_tpu_torch.scripts import deep_campaign
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rec = deep_campaign.run(*CAMPAIGN_COUNTS, offset=CAMPAIGN_OFFSET, device="cuda")
+    wall = time.perf_counter() - t0
+    legs = rec["legs"]
+    if rec["failures"]:
+        raise AssertionError(f"the campaign found {rec['failures']} failures: {legs}")
+    if wall > CAMPAIGN_LIMIT_S:
+        raise AssertionError(f"the campaign took {wall:.1f} s, over {CAMPAIGN_LIMIT_S} s")
+    forms, err = legs["matcher"]["by_form"], legs["matcher"]["max_abs_err"]
+    dedup = legs["dedup"]
+    # (kernel, classes, leg) -> (launches, max |kernel - spec|); the demux
+    # leg's launches are held to the NumPy engine through the output bytes
+    checked = {
+        ("colmerge_top2", 4, "demux"): (
+            legs["demux"]["counts"]["colmerge_top2"]["launches"], None),
+        ("colmerge_top2", 4, "matcher+dedup"): (
+            forms["bit2"]["colmerge_top2"]["launches"]
+            + dedup["counts"]["colmerge_top2"]["launches"],
+            max(err["colmerge_top2"]["bit2"], dedup["max_abs_err"]["colmerge_top2"])),
+        ("colmerge_top2", 16, "matcher"): (
+            forms["bytes"]["colmerge_top2"]["launches"], err["colmerge_top2"]["bytes"]),
+        ("tile_top2", 4, "matcher"): (
+            forms["bit2"]["tile_top2"]["launches"], err["tile_top2"]["bit2"]),
+        ("tile_top2", 16, "matcher"): (
+            forms["bytes"]["tile_top2"]["launches"], err["tile_top2"]["bytes"]),
+    }
+    lib = rec["library"]
+    log("[campaign] offset " + str(rec["offset"]) + ": " + "; ".join(
+        f"{leg} {r['cases']} cases ({r['ok']} ok, {r['failures']} failures, "
+        f"{r['wall_s']:.1f} s; " + ", ".join(
+            f"{k} {c['launches']} launches / {c['plain_calls']} plain"
+            for k, c in r["counts"].items()) + ")"
+        for leg, r in legs.items())
+        + f"; the demux leg's device matcher decided {legs['demux']['device_rows']} of "
+        f"{legs['demux']['window_rows']} window rows; max |kernel - NumPy spec| over "
+        f"(assigned, best, next): matcher {err}, dedup {dedup['max_abs_err']}; "
+        f"wall {wall:.1f} s; native library "
+        f"{Path(lib['path']).name} ({'links' if lib['libdeflate'] else 'does not link'} "
+        f"libdeflate); {card}")
+    return dict(wall_s=wall, checked=checked, legs={
+        leg: {k: r[k] for k in ("cases", "ok", "failures", "wall_s")} for leg, r in legs.items()},
+        libdeflate=lib["libdeflate"])
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1850,6 +1934,12 @@ def main() -> int:
     tr = phase_tools(card, WORK.parent / "smoke_tools")
     log(f"[tools] phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 12: the differential campaign (each case builds its own matcher:
+    # counts from 0)
+    t0 = time.perf_counter()
+    cr = phase_campaign(card)
+    log(f"[campaign] phase 12 took {time.perf_counter() - t0:.1f} s")
+
     # a module of the JAX package, or jax itself, must not have been loaded
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "fqtk_tpu"
@@ -1865,7 +1955,8 @@ def main() -> int:
         "single_cell_window_warm_ms": sc["warm_ms"],
         "mesh_demux": md, "two_processes": tp, "entry_points": er,
         "bench_wall_s": br["wall_s"], "bench_config_wall_s": br["configs"],
-        "bench_headline_reads_per_s": br["headline"], "tools": tr, "card": card}))
+        "bench_headline_reads_per_s": br["headline"], "tools": tr, "campaign": {
+            k: cr[k] for k in ("wall_s", "legs", "libdeflate")}, "card": card}))
 
     # per kernel: its main-path shape's numbers, launches on its path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1924,6 +2015,35 @@ def main() -> int:
              **{key: sc["mask"]["shapes"][0][key] for key in keys},
              shapes=sc["mask"]["shapes"]),
     ]
+    tile_main = next(s for s in kr["shapes"]["tile_top2"]
+                     if (s["k"], s["length"], s["b"]) == MAIN_PATH_SHAPE)
+    cases = ", ".join(f"{n} {leg}" for n, leg in zip(CAMPAIGN_COUNTS, (
+        "demux", "matcher", "subsample", "malformed", "dedup")))
+    for (kname, classes, leg), shape, where in (
+        (("colmerge_top2", 4, "demux"), main_shape,
+         "device-placed demux scenarios, held end to end to the NumPy engine's output "
+         "bytes; max_abs_err is phase 3's kernel against its plain version at K 96, as "
+         "are the numbers"),
+        (("colmerge_top2", 4, "matcher+dedup"), main_shape,
+         "matcher cases and dedup windows on bit2 rows, each result held to the NumPy "
+         "spec over (assigned, best, next); numbers at phase 3's K 96 shape"),
+        (("colmerge_top2", 16, "matcher"), mr["shapes"][0],
+         "matcher cases on raw bytes, held to the NumPy spec over (assigned, best, next); "
+         "numbers at phase 3's K 96 shape"),
+        (("tile_top2", 4, "matcher"), tile_main,
+         "matcher cases on bit2 rows, held to the NumPy spec over (assigned, best, next); "
+         "numbers at phase 3's K 96 shape"),
+        (("tile_top2", 16, "matcher"), sc["mask"]["shapes"][0],
+         "matcher cases on raw bytes, held to the NumPy spec over (assigned, best, next); "
+         "numbers at phase 5's K 6,794,880 shape"),
+    ):
+        launches, err = cr["checked"][(kname, classes, leg)]
+        rows.append(dict(
+            name=kname, classes=classes, launches=launches,
+            launches_per=f"phase 12, the differential campaign at offset {CAMPAIGN_OFFSET} "
+                         f"({cases} cases): {where}",
+            max_abs_err=kr["max_abs_err"][kname] if err is None else err,
+            **{key: shape[key] for key in keys}, shapes=[shape]))
     for kname in LAB_KERNEL_NAMES:
         runs = [r for r in lr["per"].values() if r["kernel"] == kname]
         rows.append(dict(name=kname, launches=lr["counts"][kname][0],

@@ -3,9 +3,10 @@
 The port's own copy of ``fqtk_tpu/parallel/merge.py`` (host code, no device library):
 the two packages share no Python module.
 
-The multi-host runtime (``fqtk_tpu/parallel/distributed.py``; its
-``torch.distributed`` counterpart is not ported yet) writes each
-process's per-sample FASTQs under ``{output}/shard-{pid}/``; the global view
+The multi-process runtime (:mod:`fqtk_tpu_torch.parallel.distributed`, the
+``torch.distributed`` counterpart of ``fqtk_tpu/parallel/distributed.py``)
+writes each process's per-sample FASTQs under ``{output}/shard-{pid}/``; the
+global view
 is the in-order concatenation of shards (the same contract the reference's
 documented "concatenate lanes before demuxing" workflow implies for lane
 shards — ``README.md:85-98``).  This module realizes that

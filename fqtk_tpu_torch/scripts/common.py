@@ -9,7 +9,7 @@ import hashlib
 import json
 import os
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import ContextManager, Dict, Iterator, Mapping, Optional
 
 #: every tool's record lands here, beside the harness's (``build/`` is
 #: git-ignored); the JAX round's JSON files at the repository's root are
@@ -70,19 +70,28 @@ def parse_arm(arm: str) -> Dict[str, str]:
 
 
 @contextlib.contextmanager
-def arm_env(arm: str) -> Iterator[None]:
-    """Set an arm's variables for the ``with`` body, then restore them."""
-    env = parse_arm(arm)
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
+def patched_env(values: Mapping[str, Optional[str]]) -> Iterator[None]:
+    """Set (a string) or unset (``None``) environment variables for the
+    ``with`` body, then restore them."""
+
+    def apply(env: Mapping[str, Optional[str]]) -> None:
+        for k, v in env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        apply(values)
+        yield
+    finally:
+        apply(saved)
+
+
+def arm_env(arm: str) -> ContextManager[None]:
+    """Set an arm's variables for the ``with`` body, then restore them."""
+    return patched_env(parse_arm(arm))
 
 
 def outputs_digest(out_dir: Path) -> str:

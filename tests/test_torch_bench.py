@@ -216,18 +216,47 @@ def headline(tmp_path_factory):
     return tmp, barcodes, paths, meta
 
 
-def test_run_e2e_keys(headline):
+@pytest.fixture(scope="module")
+def e2e_runs(headline):
+    """One ``run_e2e`` of each package on the headline's inputs: ``(inputs,
+    (rps, timings), (jax rps, jax timings))``."""
     tmp, barcodes, paths, meta = headline
     inputs = [paths["i1"], paths["r1"], paths["r2"], paths["i2"]]
     structs = ["8B", "100T", "100T", "9B"]
-    rps, t = bench.run_e2e(tmp, inputs, structs, meta, 3000, "p", trials=1, device="cpu")
-    jrps, jt = jax_bench.run_e2e(tmp, inputs, structs, meta, 3000, "j", trials=1)
+    ours = bench.run_e2e(tmp, inputs, structs, meta, 3000, "p", trials=1, device="cpu")
+    theirs = jax_bench.run_e2e(tmp, inputs, structs, meta, 3000, "j", trials=1)
+    return inputs, ours, theirs
+
+
+def shared_timings(t: dict, steal: float) -> dict:
+    """The port's stage timings as both packages' ``host_speed_of_light``
+    read them: without the port's own ``pipeline`` key, and with
+    ``steal_frac`` fixed (``run_e2e`` reads it from ``/proc/stat`` around
+    each run, so two runs may see different steal)."""
+    return {**{k: v for k, v in t.items() if k != "pipeline"}, "steal_frac": steal}
+
+
+def test_run_e2e_keys(headline, e2e_runs):
+    tmp = headline[0]
+    inputs, (rps, t), (jrps, jt) = e2e_runs
     assert rps > 0 and jrps > 0
     # the port's run_demux also times its whole native pipeline
     assert set(t) == set(jt) | {"pipeline"}
     assert not list(tmp.glob("out_p*"))  # a measured run's outputs are deleted
-    sol = bench.host_speed_of_light(rps, 3000, t, inputs=inputs)
-    assert list(sol) == list(jax_bench.host_speed_of_light(jrps, 3000, jt, inputs=inputs))
+    timings = shared_timings(t, 0.0)
+    sol = bench.host_speed_of_light(rps, 3000, timings, inputs=inputs)
+    assert list(sol) == list(jax_bench.host_speed_of_light(rps, 3000, timings, inputs=inputs))
+
+
+@pytest.mark.parametrize("steal", [0.0, 0.05])
+def test_run_e2e_speed_of_light_keys_by_steal(e2e_runs, steal):
+    """Both branches of the steal report (``bench.py:363``), every run."""
+    inputs, (rps, t), _ = e2e_runs
+    timings = shared_timings(t, steal)
+    sol = bench.host_speed_of_light(rps, 3000, timings, inputs=inputs)
+    assert list(sol) == list(jax_bench.host_speed_of_light(rps, 3000, timings, inputs=inputs))
+    assert ("steal_frac_during_run" in sol) == (steal > 0)
+    assert ("frac_of_available_ceiling" in sol) == (steal > 0)
 
 
 def test_run_refproxy_and_the_ab(headline):

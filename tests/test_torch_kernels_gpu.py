@@ -6,8 +6,9 @@ the scan route (``make_assign_fn``) against the NumPy spec, and the
 device mesh (``parallel/mesh.py``, every tile on ``cuda:0``) against its
 CPU run and the spec, the driver entry points (``graft_entry.py``) and the
 harness's two kernel legs (``bench.py``: mid-K and the 737K device leg at
-their full sizes) and the device arms of the measuring tools
-(``fqtk_tpu_torch.scripts``: ``profile_e2e``, ``ab_e2e`` at ``midk``), on the card.  Marked
+their full sizes), the device arms of the measuring tools
+(``fqtk_tpu_torch.scripts``: ``profile_e2e``, ``ab_e2e`` at ``midk``) and the
+differential campaign's matcher leg (``deep_campaign``), on the card.  Marked
 ``gpu``: each test skips without a CUDA device.  Run on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -917,6 +918,21 @@ def test_ab_e2e_midk_device_arm_on_card(tmp_path, monkeypatch):
     assert m["scheme"] == "colmerge_top2" and m["launches"] > 0 and m["plain_calls"] == 0, m
     assert host["matcher"] == {}
     assert dev["outputs_sha256"] == host["outputs_sha256"]
+
+
+@pytest.mark.gpu
+def test_deep_campaign_matcher_leg_on_card(capsys):
+    """The campaign's matcher leg at 4 cases: both kernels, forced, on raw
+    bytes and bit2 rows, equal to the NumPy spec over (assigned, best, next);
+    launched, no plain call."""
+    _need_card()
+    from fqtk_tpu_torch.scripts import deep_campaign
+
+    r = deep_campaign.matcher_leg(4, 0, "cuda")
+    assert r["failures"] == 0, capsys.readouterr().out
+    for name, c in r["counts"].items():
+        assert c["launches"] > 0 and c["plain_calls"] == 0, (name, c)
+    assert r["max_abs_err"] == {k: {"bytes": 0, "bit2": 0} for k in hm.SCHEMES}
 
 
 def test_every_cu_has_an_entry_point():

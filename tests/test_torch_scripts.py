@@ -306,6 +306,16 @@ def test_arm_env_sets_and_restores(monkeypatch):
         common.parse_arm("FQTK_A")
 
 
+def test_patched_env_sets_unsets_and_restores(monkeypatch):
+    monkeypatch.setenv("FQTK_A", "1")
+    monkeypatch.delenv("FQTK_B", raising=False)
+    with pytest.raises(KeyError):
+        with common.patched_env({"FQTK_A": None, "FQTK_B": "3"}):
+            assert "FQTK_A" not in os.environ and os.environ["FQTK_B"] == "3"
+            raise KeyError("the body fails")
+    assert os.environ["FQTK_A"] == "1" and "FQTK_B" not in os.environ
+
+
 def test_outputs_digest_reads_decompressed_bytes(tmp_path):
     for name, level in (("a", 1), ("b", 9)):
         (tmp_path / name).mkdir()

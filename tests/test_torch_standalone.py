@@ -2,7 +2,8 @@
 neither ``jax`` nor anything of the JAX package ``fqtk_tpu``, and every piece
 of host code the port copied from that package still equals its original.
 
-(a) an AST scan of the sources, (b) a subprocess that imports every module
+(a) an AST scan of the sources (no import of jax, of the JAX package or of
+the repository's tests), (b) a subprocess that imports every module
 of the port, runs a small demux on the CPU and the subsample command and
 then looks at ``sys.modules``, (c) each copy against its original on seeded
 inputs, exactly (integers, bytes and text: tolerance 0)."""
@@ -84,6 +85,9 @@ def test_source_imports_no_jax_and_no_jax_package(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "fqtk_tpu"), (path.name, mod)
+        # nor the repository's tests (e.g. the scenario generator of
+        # tests/test_fuzz_differential.py: the port keeps its own copy)
+        assert top not in ("tests", "conftest") and not top.startswith("test_"), (path.name, mod)
     # nor by name through importlib / __import__
     text = path.read_text()
     for needle in ('import_module("fqtk_tpu.', "import_module('fqtk_tpu.",
@@ -99,7 +103,8 @@ def test_scan_covers_the_package():
                  "fqtk_tpu_torch/parallel/distributed.py", "fqtk_tpu_torch/lab/kernel_lab.py",
                  "fqtk_tpu_torch/core/bitenc.py", "fqtk_tpu_torch/core/barcode_matcher.py",
                  "fqtk_tpu_torch/graft_entry.py", "fqtk_tpu_torch/bench.py",
-                 "chip_smoke.py"):
+                 "fqtk_tpu_torch/scripts/deep_campaign.py",
+                 "fqtk_tpu_torch/scripts/fuzz_scenarios.py", "chip_smoke.py"):
         assert must in names
 
 
