@@ -10,7 +10,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 1. device  — the card's name and power limit; no CUDA device raises.
 2. build   — the host I/O engine (when the committed binary does not load)
              and the CUDA kernels from ``fqtk_tpu_torch/csrc/`` (one nvcc
-             per source, all started together).
+             per source, all started together); the registers, shared bytes
+             and CTAs an SM of each instantiation of the sliced depth walk.
 3. kernels — ``colmerge_top2`` and ``tile_top2`` against their plain
              versions bit for bit at K = 96 / 8,192 / 737,280, with median
              times of all four, each kernel's bound (the larger of its int8
@@ -23,7 +24,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              B 8,192) and K = 8,192 (L 16, B 131,072), each call launching
              ``colmerge_top2`` with no plain call, its kernel's (best, idx,
              next) equal to the plain version's and its gated result equal
-             to the NumPy spec ``assign_batch_np``.  Then one call of
+             to the NumPy spec ``assign_batch_np``.  Then bit2 rows of 64 bp
+             (the demux main path's form above L 32: the sliced depth walk)
+             through ``make_hopper_assign_fn`` at K = 8,192, B = 131,072:
+             one ``colmerge_top2`` launch, no plain call, equal to the plain
+             version and, on its first rows, to the spec.  Then one call of
              the route of barcodes longer than 255 bp (``make_assign_fn``,
              plain PyTorch on the card, no kernel) at K = 96, L = 300,
              B = 8,192, equal to the NumPy spec ``assign_batch_np``.
@@ -137,7 +142,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
              within 120 s.
 
 The build fails the run if a kernel on the tensor-core engine
-(``ENGINE_LAB_KERNELS``) spills or ptxas serializes its ``wgmma``.
+(``ENGINE_KERNELS``: all seven) spills or ptxas serializes its ``wgmma``,
+or if an instantiation of the sliced depth walk of ``colmerge_top2`` and
+``tile_top2`` holds other than two CTAs an SM (``walk_info``, printed per
+instantiation).
 
 After the last phase the script fails if ``jax`` or any module of the JAX
 package ``fqtk_tpu`` has been imported.  The second-to-last line is the card
@@ -205,6 +213,14 @@ MASK_SHAPES = [(96, 17, 8192), (8192, 16, 131_072)]
 MASK_SPEC_ROWS = 8192
 #: (K, L, B) of the long-barcode route's call
 LONG_SHAPE = (96, 300, 8192)
+#: (K, L, B) of the bit2 call above L 32 (the sliced depth walk at KP 256)
+#: through make_hopper_assign_fn; the NumPy spec is held to its first
+#: WALK_SPEC_ROWS rows
+WALK_BIT2_SHAPE = (8192, 64, 131_072)
+WALK_SPEC_ROWS = 2048
+#: (classes, L) of each instantiation of the sliced depth walk: KP 256 (one
+#: stage a sub-tile, A built once) and deeper (A built per stage)
+WALK_INSTANCES = [(4, 64), (4, 100), (16, 16), (16, 24)]
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -522,6 +538,67 @@ def phase_mask_inputs(card: str) -> dict:
         del o, st, fn
         torch.cuda.empty_cache()
     return dict(shapes=shapes, max_abs_err=max_err)
+
+
+def phase_walk_bit2(card: str) -> dict:
+    """Bit2 rows above L 32 (the native demux main path's form for barcodes
+    of 33-255 bp: the sliced depth walk) through ``make_hopper_assign_fn`` at
+    :data:`WALK_BIT2_SHAPE`: one ``colmerge_top2`` launch and no plain call
+    (counts from 0 in the fresh function), its gated result equal to the spec
+    on the first :data:`WALK_SPEC_ROWS` rows; then the kernel against its
+    plain version bit for bit (all rows and a ragged B) and both timed."""
+    from fqtk_tpu_torch.ops.hopper_matcher import make_hopper_assign_fn
+
+    kernel, plain = kernel_runs()["colmerge_top2"]
+    k, length, b = WALK_BIT2_SHAPE
+    es, packed = kernel_case(k, length, b, seed=1500)
+    codes = (packed[:WALK_SPEC_ROWS, np.arange(length) // 4]
+             >> (2 * (np.arange(length) % 4))) & 3
+    want = spec_rows(ACGT[codes], es, 1, 2)
+    fn = make_hopper_assign_fn(es, 1, 2, device="cuda")
+    if fn.scheme != "colmerge_top2" or fn.state.classes != 4:
+        raise AssertionError(f"bit2 L={length}: {fn.scheme}, {fn.state.classes} classes")
+    got = fn(packed)
+    torch.cuda.synchronize()
+    counts = {n: (kern.launches, kern.plain_calls) for n, kern in fn.kernels.items()}
+    if counts != {"colmerge_top2": (1, 0), "tile_top2": (0, 0)}:
+        raise AssertionError(f"bit2 call at L={length}: kernel counts {counts}")
+    check_gated("bit2 above L 32", got, want, f"K={k} L={length} B={b}")
+    st, obs, max_err = fn.state, torch.from_numpy(packed).cuda(), 0
+    for n in (b, b - 37):
+        o = obs[:n].contiguous()
+        err = compare("colmerge_top2 (bit2, sliced walk)", kernel(o, st), plain(o, st),
+                      f"K={k} L={length} B={n}")
+        max_err = max(max_err, err)
+    ms = cuda_median_ms(lambda: kernel(obs, st), 5)
+    plain_ms = cuda_median_ms(lambda: plain(obs, st), 5)
+    row = shape_row(k, length, obs, st, ms, plain_ms)
+    log(f"[kernels] bit2, K={k} L={length} B={b}: through make_hopper_assign_fn, one "
+        f"colmerge_top2 launch, 0 plain calls, equal to assign_batch_np ({WALK_SPEC_ROWS} "
+        f"rows) and the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median "
+        f"of 5; {card}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({100 * row['bound_ms'] / ms:.1f}% reached); torch._int_mm, counts only, "
+        f"{row['library_ms']:.4f} ms")
+    return dict(shapes=[row], max_abs_err=max_err, launches=counts["colmerge_top2"][0])
+
+
+def walk_occupancy(card: str) -> None:
+    """Registers, shared bytes and CTAs an SM of every instantiation of the
+    sliced depth walk, as the card reports them (``walk_info``); fails
+    unless each holds two CTAs an SM with no local memory."""
+    from fqtk_tpu_torch.ops.hopper_matcher import table_depth, walk_info
+
+    for kname in ("colmerge_top2", "tile_top2"):
+        for classes, length in WALK_INSTANCES:
+            info = walk_info(kname, length, classes)
+            log(f"[build] {kname} sliced walk, {classes} classes, KP "
+                f"{table_depth(length, classes)} (L {length}): {info['registers']} registers, "
+                f"{info['static_smem']} + {info['dynamic_smem']} bytes of shared memory, "
+                f"{info['ctas_per_sm']} CTAs an SM, ring of {info['ring_stages']}, "
+                f"{info['local_bytes']} local bytes ({card})")
+            if info["ctas_per_sm"] != 2 or info["local_bytes"]:
+                raise AssertionError(f"{kname} sliced walk at {classes} classes, L "
+                                     f"{length}: {info}")
 
 
 def long_barcode_route(card: str) -> float:
@@ -1001,8 +1078,8 @@ def single_cell_masks(card: str, es, codes: np.ndarray, rng) -> dict:
 LAB_K, LAB_L = 737_280, 16  # the lab's defaults (FQTK_LAB_K, FQTK_LAB_L)
 LAB_B = 16_384
 LAB_KERNEL_NAMES = ("mma_probe", "lab_probe", "clamp16_top2", "group_top2", "clamp8_top2")
-#: the lab kernels on the tensor-core engine: no spill, no serialized wgmma
-ENGINE_LAB_KERNELS = LAB_KERNEL_NAMES
+#: the kernels on the tensor-core engine: no spill, no serialized wgmma
+ENGINE_KERNELS = ("colmerge_top2", "tile_top2", *LAB_KERNEL_NAMES)
 
 
 def phase_lab(card: str) -> dict:
@@ -1875,13 +1952,15 @@ def main() -> int:
             f"{ptx['entries']} kernels, {ptx['regs_min']}-{ptx['regs_max']} registers, "
             f"{ptx['spill_bytes']} spill bytes, {ptx['serialized']} wgmma serialization "
             "warnings")
-        if kname in ENGINE_LAB_KERNELS and (ptx["spill_bytes"] or ptx["serialized"]):
+        if kname in ENGINE_KERNELS and (ptx["spill_bytes"] or ptx["serialized"]):
             raise AssertionError(f"{kname}: the build spills or serializes wgmma: {ptx}")
+    walk_occupancy(card)
 
     # phase 3: kernels against plain
     t0 = time.perf_counter()
     kr = phase_kernels(card)
     mr = phase_mask_inputs(card)
+    wr = phase_walk_bit2(card)
     long_ms = long_barcode_route(card)
     log(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -1984,6 +2063,11 @@ def main() -> int:
              launches_per="150,000-read 96-sample demux, --engine pallas (Python-IO engine)",
              max_abs_err=mr["max_abs_err"], **{key: mr["shapes"][0][key] for key in keys},
              shapes=mr["shapes"]),
+        dict(name="colmerge_top2", launches=wr["launches"],
+             launches_per=f"one {WALK_BIT2_SHAPE[2]:,}-row call of make_hopper_assign_fn "
+                          f"on bit2 rows of {WALK_BIT2_SHAPE[1]} bp (the sliced depth walk)",
+             max_abs_err=wr["max_abs_err"], **{key: wr["shapes"][0][key] for key in keys},
+             shapes=wr["shapes"]),
         dict(name="colmerge_top2", launches=mw["launches"],
              launches_per=f"131,072-read single-cell window on a 1 x {SC_SHARDS} whitelist "
                           "mesh (one launch a shard of 3,397,440 barcodes, both on cuda:0)",

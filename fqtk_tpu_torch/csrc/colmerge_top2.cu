@@ -116,3 +116,12 @@ extern "C" int fqtk_colmerge_top2(const void* obs, int64_t b, int width,
       pp, b, n_chunks, shift, pb, pi, pn);
   return (int)cudaGetLastError();
 }
+
+// What the card makes of the sliced walk's pass-1 instantiation a launch
+// at (classes, kp > 128) runs: 6 int32 to `out` (registers, static and
+// dynamic shared bytes, CTAs an SM holds, local bytes, ring stages;
+// walk_info_at in mma_count.cuh).  0, -1 for a depth the walk does not
+// take, else the CUDA error.
+extern "C" int fqtk_colmerge_top2_walk_info(int classes, int kp, void* out) {
+  return walk_info<ColmergeScheme>(classes, kp, static_cast<int32_t*>(out));
+}

@@ -74,6 +74,12 @@
 //   completes on an mbarrier: a ring of three or four stages of 256
 //   columns, the copies of the next stages in flight while stage s is
 //   multiplied.
+// * Depth above 128 bytes (16-class rows at L >= 9, bit2 rows at L 33-255):
+//   the sliced walk of count_top2 stages a sub-tile's depth 256 bytes at a
+//   time in a ring of three 32 KB stages beside the rows' one-hot words
+//   (two CTAs an SM still), multiplies a sub-tile's whole depth into one
+//   accumulator set, and frees a slot by the last warp through it (no
+//   CTA-wide barrier), so the CTA's two warpgroups run apart.
 // * Fill.  The wrapper splits K into `n_chunks` column ranges (multiples of
 //   128 columns) where the row tiles alone do not fill the SMs; each (row
 //   tile, chunk) is a CTA and the chunks of a row meet in a second pass.
@@ -104,11 +110,19 @@ constexpr int kThreads = 256;    // two warpgroups
 constexpr int kRows = 128;       // rows per CTA, 64 per warpgroup
 constexpr int kSub = 128;        // columns per wgmma (n128)
 constexpr int kStageSubs = 2;    // sub-tiles per stage of the main loop
-constexpr int kSliceStages = 8;  // ring depth of the sliced loop (16 KB each)
 constexpr int kMaxRing = 8;      // mbarriers a CTA holds
-constexpr int kBitStride = 33;   // words per row of the sliced loop's one-hot
 constexpr int32_t kMaxCount = 255;
 constexpr int32_t kKeyInit = 0x7fffffff;
+
+// The sliced walk (KP above 128; count_top2's MULTI): a stage is one
+// sub-tile's 128 columns x kWalkSlices depth slices of 128 bytes (32 KB, one
+// copy), kWalkRing stages beside the rows' one-hot words at kBitStride words
+// a row: 112.5 KB, so that two CTAs share an SM's 228 KB.
+constexpr int kSliceBytes = kSub * 128;  // one depth slice of a sub-tile
+constexpr int kWalkSlices = 2;
+constexpr int kWalkRing = 3;
+constexpr int kBitStride = 33;
+constexpr int kWarps = kThreads / 32;
 
 // Ring depth of the main loop: 96 KB of stages at most, so that two CTAs
 // share an SM's shared memory at every depth.
@@ -118,7 +132,7 @@ __host__ __device__ constexpr int ring_stages(int nk1) {
 
 // Bytes of dynamic shared memory a kernel instantiation needs.
 __host__ __device__ constexpr int smem_bytes(int nk1, bool multi) {
-  return multi ? kSliceStages * kSub * 32 * nk1 + kRows * kBitStride * 4
+  return multi ? kWalkRing * kWalkSlices * kSliceBytes + kRows * kBitStride * 4
                : ring_stages(nk1) * kStageSubs * kSub * 32 * nk1;
 }
 
@@ -168,6 +182,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@p bra DONE_%=;\nbra WAIT_%=;\nDONE_%=:\n}\n" ::"r"(bar),
       "r"(parity)
+      : "memory");
+}
+
+// The sliced walk's release of a slot, without a branch (a branch between
+// products makes ptxas serialize them, C7520): lane 0 counts its warp in at
+// `done`, and the count before it reaches the whole warp.
+__device__ __forceinline__ uint32_t count_in(uint32_t* done, int lane) {
+  uint32_t before = 0u;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
+      "@p atom.shared.add.u32 %0, [%2], 1;\n}\n"
+      : "+r"(before)
+      : "r"(lane), "r"(smem_u32(done))
+      : "memory");
+  return __shfl_sync(0xffffffffu, before, 0);
+}
+
+// bulk_load where `pred` is non-zero, under a predicate, not a branch.
+__device__ __forceinline__ void bulk_load_if(int pred, uint32_t dst,
+                                             const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.s32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "r"(pred)
       : "memory");
 }
 
@@ -341,6 +382,59 @@ __device__ __forceinline__ uint32_t nib4_word(const uint8_t* __restrict__ o,
   for (int i = 0; i < 4; ++i)
     if (4 * w + i < width) word |= (uint32_t)o[4 * w + i] << (8 * i);
   return word;
+}
+
+// The sliced walk's A fragments: a_frag's and a_frag16's values, in fewer
+// instructions, since the walk may build them once per stage.
+
+// Four 0/1 bits as four int8 bytes, lowest first: the copies of `nib` at
+// bits 0, 7, 14 and 21 do not overlap, so the product has no carries.
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// class_bytes(m, t): shl.b32 clamps a count above 31 to 32 and so gives 0
+// unless 0 <= m - 4t < 4 (the difference taken unsigned).
+__device__ __forceinline__ uint32_t walk_class_bytes(uint32_t m, int t) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(1u), "r"(8u * (m - 4u * t)));
+  return r;
+}
+
+// The fragments of the eight k32 steps of depth slices s0 and s0 + 1 (step
+// 4h + ks is step ks of slice s0 + h) from the words of the thread's rows
+// (lo: row g, hi: row g + 8; a slice's words from [slice * 4] at 4 classes,
+// its nib4 word [slice] at 16).  A slice at or past n_slices gives zeros:
+// that half of the stage holds no table.
+template <int CLASSES>
+__device__ __forceinline__ void walk_frags(uint32_t (&a)[2 * 4][4],
+                                           const uint32_t* __restrict__ lo,
+                                           const uint32_t* __restrict__ hi,
+                                           int s0, int n_slices, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = s0 + h < n_slices;
+    const int sl = live ? s0 + h : s0;  // never a word past the row's
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t f[4];
+      if constexpr (CLASSES == 16) {
+        const uint32_t wl = lo[sl] >> (8 * ks), wh = hi[sl] >> (8 * ks);
+        f[0] = walk_class_bytes(wl & 15u, t);
+        f[1] = walk_class_bytes(wh & 15u, t);
+        f[2] = walk_class_bytes((wl >> 4) & 15u, t);
+        f[3] = walk_class_bytes((wh >> 4) & 15u, t);
+      } else {
+        const uint32_t wl = lo[sl * 4 + ks], wh = hi[sl * 4 + ks];
+        f[0] = spread4((wl >> (4 * t)) & 15u);
+        f[1] = spread4((wh >> (4 * t)) & 15u);
+        f[2] = spread4((wl >> (16 + 4 * t)) & 15u);
+        f[3] = spread4((wh >> (16 + 4 * t)) & 15u);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[4 * h + ks][e] = live ? f[e] : 0u;
+    }
+  }
 }
 
 // --- the running top-2 -----------------------------------------------------
@@ -559,12 +653,19 @@ struct Top2Visitor {
 // every lane holds its rows' folded pairs in `top`; rows are row0 +
 // warp_in_cta * 16 + (lane >> 2) and that + 8.
 //
-// NK1 k32 steps per depth slice; MULTI = false: the whole depth (KP = 32 *
-// NK1) is one slice, A stays in registers.  MULTI = true (NK1 = 4): KP is a
-// multiple of 128, the depth is walked in slices of 128 bytes with each
-// row's A source in shared memory at kBitStride words a row: at 4 classes
-// the one-hot bit words (four a slice), at 16 the nib4 words (one a slice).
-// Either is at most 32 words at L <= 255 (KP <= 1,024 or 4,096).
+// MULTI = false: NK1 k32 steps, the whole depth (KP = 32 * NK1 <= 128) is
+// one slice and A stays in registers.  MULTI = true: KP is a multiple of 128
+// above 128, stored in slices of 128 bytes, and walked in stages of
+// kWalkSlices slices (a 32 KB copy; a sub-tile's last stage holds one slice
+// where KP / 128 is odd) with each row's A source in shared memory at
+// kBitStride words a row: at 4 classes the one-hot bit words (four a slice),
+// at 16 the nib4 words (one a slice), at most 32 words at L <= 255 (KP <=
+// 1,024 or 4,096).  NK1 = 8: KP is 256, one stage a sub-tile, and the A
+// fragments are built once for the CTA; NK1 = 4: deeper, they are built for
+// every stage.  A sub-tile's stages multiply into one accumulator set, each
+// waited for once (its slot is then free).  No CTA-wide barrier in the
+// walk: the warp that finishes a stage last starts the copy of the stage
+// kWalkRing on into its slot, so the two warpgroups drift apart.
 template <int NK1, bool MULTI, int CLASSES>
 __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
                                            int64_t b, int width, int length,
@@ -583,19 +684,24 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
     Top2Visitor vis{top, c_begin, t};
     product_loop<NK1, kSub, kStageSubs, ring_stages(NK1)>(a, src, smem, vis);
   } else {
-    static_assert(!MULTI || NK1 == 4, "sliced depth walks 128 bytes a slice");
-    constexpr int kSliceBytes = 32 * NK1;
-    constexpr int kSubBytes = kSub * kSliceBytes;
-    constexpr uint32_t kSbo = 2 * NK1 * 128;
-    __shared__ __align__(8) uint64_t bars[kMaxRing];
+    static_assert(NK1 == 4 || NK1 == 8, "the walk's two instantiations");
+    constexpr bool kKeepA = NK1 == 8;
+    constexpr int kStageBytes = kWalkSlices * kSliceBytes;
+    constexpr uint32_t kSbo = 8 * 128;  // a slice's 8 core matrices
+    __shared__ __align__(8) uint64_t full[kWalkRing];
+    __shared__ uint32_t done[kWalkRing];  // warps through the slot, all uses
     const uint32_t sbase = smem_u32(smem);
-    if (threadIdx.x == 0) mbar_init(bars, kMaxRing);
+    if (threadIdx.x == 0) {
+      mbar_init(full, kWalkRing);
+      for (int i = 0; i < kWalkRing; ++i) done[i] = 0u;
+    }
     int32_t acc[64];
-    const int n_slices = kp / kSliceBytes;
+    const int n_slices = kKeepA ? 2 : kp / 128;
+    const int n_groups = kKeepA ? 1 : (n_slices + kWalkSlices - 1) / kWalkSlices;
     // words per row, <= 32: one-hot bit words, or nib4 words
-    const int nw = CLASSES == 16 ? n_slices : n_slices * NK1;
+    const int nw = CLASSES == 16 ? n_slices : n_slices * 4;
     uint32_t* bits =
-        reinterpret_cast<uint32_t*>(smem + kSliceStages * kSubBytes);
+        reinterpret_cast<uint32_t*>(smem + kWalkRing * kStageBytes);
     for (int q = threadIdx.x; q < kRows * nw; q += kThreads) {
       const int r = q / nw, w = q - r * nw;
       const uint8_t* o = obs + (row0 + r) * width;
@@ -605,44 +711,59 @@ __device__ __forceinline__ void count_top2(const uint8_t* __restrict__ obs,
         bits[r * kBitStride + w] = row0 + r < b ? onehot_word(o, length, w) : 0u;
     }
     __syncthreads();  // the mbarriers are initialized, the bit words written
-    // unit u = (sub-tile, depth slice), slices innermost: units are
-    // consecutive 16 KB blocks of the table
-    const int64_t n_units = (c_end - c_begin) / kSub * n_slices;
-    const uint8_t* src = table + c_begin * kp;
-    auto fill = [&](int64_t u) {
-      const int slot = (int)(u % kSliceStages);
-      bulk_load(sbase + slot * kSubBytes, src + u * kSubBytes, kSubBytes,
-                smem_u32(bars + slot));
+    // stage u = (sub-tile u / n_groups, slices 2 (u % n_groups) ..): the
+    // sub-tile's slices are consecutive 16 KB blocks of the table; a CTA's
+    // stages fit an int (2^23 / 128 sub-tiles x 16 stages at most)
+    const int n_stages = (int)((c_end - c_begin) / kSub) * n_groups;
+    // the copy of stage u into `slot`, where `pred`
+    auto fill_if = [&](int pred, int u, int slot) {
+      const int sub = u / n_groups;
+      const int s0 = (u - sub * n_groups) * kWalkSlices;
+      bulk_load_if(pred, sbase + slot * kStageBytes,
+                   table + c_begin * kp +
+                       ((int64_t)sub * n_slices + s0) * kSliceBytes,
+                   (uint32_t)min(kWalkSlices, n_slices - s0) * kSliceBytes,
+                   smem_u32(full + slot));
     };
     if (threadIdx.x == 0)
-      for (int s = 0; s < kSliceStages - 1 && s < n_units; ++s) fill(s);
+      for (int s = 0; s < kWalkRing && s < n_stages; ++s) fill_if(1, s, s);
     const uint32_t* lo_bits = bits + (warp * 16 + g) * kBitStride;
     const uint32_t* hi_bits = lo_bits + 8 * kBitStride;
-    for (int64_t u = 0; u < n_units; ++u) {
-      const int slot = (int)(u % kSliceStages);
-      mbar_wait(smem_u32(bars + slot), (uint32_t)(u / kSliceStages) & 1u);
-      __syncthreads();  // unit u has landed; unit u - 1 has been multiplied
-      if (threadIdx.x == 0 && u + kSliceStages - 1 < n_units)
-        fill(u + kSliceStages - 1);
-      const int64_t sub = u / n_slices;
-      const int sl = (int)(u - sub * n_slices);
-      const uint32_t st = sbase + slot * kSubBytes;
-      uint32_t a[NK1][4];
-#pragma unroll
-      for (int ks = 0; ks < NK1; ++ks) {
-        if constexpr (CLASSES == 16)
-          a_frag16(a[ks], lo_bits[sl] >> (8 * ks), hi_bits[sl] >> (8 * ks), t);
-        else
-          a_frag(a[ks], lo_bits[sl * NK1 + ks], hi_bits[sl * NK1 + ks], t);
-      }
+    uint32_t a[2 * 4][4];
+    if constexpr (kKeepA) walk_frags<CLASSES>(a, lo_bits, hi_bits, 0, 2, t);
+    int slot = 0, gi = 0, off = 0;
+    uint32_t parity = 0u;
+    // not unrolled: a product under a branch of its own makes ptxas
+    // serialize it (C7520)
+#pragma unroll 1
+    for (int u = 0; u < n_stages; ++u) {
+      if constexpr (!kKeepA)
+        walk_frags<CLASSES>(a, lo_bits, hi_bits, gi * kWalkSlices, n_slices, t);
+      mbar_wait(smem_u32(full + slot), parity);
+      const uint32_t st = sbase + slot * kStageBytes;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < NK1; ++ks)
-        wgmma_s8<kSub>(acc, a[ks], b_desc(st + ks * 256, kSbo),
-                       (sl | ks) != 0);
+      for (int ks = 0; ks < 2 * 4; ++ks)
+        wgmma_s8<kSub>(acc, a[ks],
+                       b_desc(st + (ks >> 2) * kSliceBytes + (ks & 3) * 256, kSbo),
+                       (gi | ks) != 0);
       wgmma_commit();
       wgmma_wait<0>();
-      if (sl == n_slices - 1) top.visit(acc, c_begin + sub * kSub, t);
+      // the warp's products have read the stage: the warp through the slot
+      // last starts the copy of the stage kWalkRing on into it
+      const uint32_t before = count_in(done + slot, lane);
+      fill_if(lane == 0 && before % kWarps == kWarps - 1 &&
+                  u + kWalkRing < n_stages,
+              u + kWalkRing, slot);
+      if (++gi == n_groups) {
+        top.visit(acc, c_begin + off, t);
+        gi = 0;
+        off += kSub;
+      }
+      if (++slot == kWalkRing) {
+        slot = 0;
+        parity ^= 1u;
+      }
     }
   }
   top.fold_quad();
@@ -698,15 +819,28 @@ __global__ void __launch_bounds__(kThreads, 2) top2_pass1(const Pass1Args a) {
   }
 }
 
+// The attributes a pass-1 instantiation launches with: dynamic shared memory
+// above 48 KB and, for the walk's two CTAs an SM, the largest shared-memory
+// carveout.
+template <class Kernel>
+cudaError_t pass1_attributes(Kernel kern, int smem, bool multi) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (!multi) return cudaSuccess;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
 template <class Scheme, int NK1, bool MULTI, int CLASSES>
 cudaError_t launch_pass1_at(const Pass1Args& a, cudaStream_t s) {
   constexpr int kSmem = smem_bytes(NK1, MULTI);
   auto kern = top2_pass1<Scheme, NK1, MULTI, CLASSES>;
-  if (kSmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = pass1_attributes(kern, kSmem, MULTI);
+  if (e != cudaSuccess) return e;
   kern<<<(unsigned)(a.n_row_tiles * a.n_chunks), kThreads, kSmem, s>>>(a);
   return cudaGetLastError();
 }
@@ -718,6 +852,7 @@ cudaError_t launch_pass1_depth(const Pass1Args& a, cudaStream_t s) {
     case 64: return launch_pass1_at<Scheme, 2, false, CLASSES>(a, s);
     case 96: return launch_pass1_at<Scheme, 3, false, CLASSES>(a, s);
     case 128: return launch_pass1_at<Scheme, 4, false, CLASSES>(a, s);
+    case 256: return launch_pass1_at<Scheme, 8, true, CLASSES>(a, s);
     default: return launch_pass1_at<Scheme, 4, true, CLASSES>(a, s);
   }
 }
@@ -727,6 +862,47 @@ template <class Scheme>
 cudaError_t launch_pass1(const Pass1Args& a, int classes, cudaStream_t s) {
   return classes == 16 ? launch_pass1_depth<Scheme, 16>(a, s)
                        : launch_pass1_depth<Scheme, 4>(a, s);
+}
+
+// What the card makes of the sliced walk's pass-1 instantiation at depth
+// KP (> 128), with the attributes it launches with: out[0] registers a
+// thread, [1] static and [2] dynamic shared bytes, [3] CTAs an SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [4] local (spill)
+// bytes a thread, [5] the stages of its ring.
+template <class Scheme, int NK1, int CLASSES>
+cudaError_t walk_info_at(int32_t* out) {
+  constexpr int kSmem = smem_bytes(NK1, true);
+  auto kern = top2_pass1<Scheme, NK1, true, CLASSES>;
+  cudaError_t e = pass1_attributes(kern, kSmem, true);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, kThreads,
+                                                    kSmem);
+  if (e != cudaSuccess) return e;
+  out[0] = fa.numRegs;
+  out[1] = (int32_t)fa.sharedSizeBytes;
+  out[2] = kSmem;
+  out[3] = ctas;
+  out[4] = (int32_t)fa.localSizeBytes;
+  out[5] = kWalkRing;
+  return cudaSuccess;
+}
+
+// walk_info_at of the instantiation a launch at (classes, kp) runs, as
+// launch_pass1_depth picks it; -1 for a depth the walk does not take.
+template <class Scheme>
+int walk_info(int classes, int kp, int32_t* out) {
+  if ((classes != 4 && classes != 16) || kp <= 128 ||
+      kp > depth_of(255, classes) || kp % 128 != 0)
+    return -1;
+  if (classes == 16)
+    return (int)(kp == 256 ? walk_info_at<Scheme, 8, 16>(out)
+                           : walk_info_at<Scheme, 4, 16>(out));
+  return (int)(kp == 256 ? walk_info_at<Scheme, 8, 4>(out)
+                         : walk_info_at<Scheme, 4, 4>(out));
 }
 
 // The checks both entry points make of their arguments: 0, or the negative

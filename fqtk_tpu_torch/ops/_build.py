@@ -88,6 +88,10 @@ ENTRY_POINTS = {
     },
 }
 
+#: argument types of ``fqtk_<stem>_walk_info`` (classes, kp, out: 6 int32):
+#: what the card makes of the sliced depth walk's instantiation at that depth
+WALK_INFO_POINTS = {stem: [_I32, _I32, _P] for stem in ("colmerge_top2", "tile_top2")}
+
 
 class BuildError(RuntimeError):
     pass
@@ -174,8 +178,18 @@ def load_kernel(name: str):
             lib = ctypes.CDLL(str(info["path"]))
             fn = getattr(lib, f"fqtk_{stem}")
             fn.restype, fn.argtypes = _I32, ENTRY_POINTS[stem]
+            if stem in WALK_INFO_POINTS:
+                info_fn = getattr(lib, f"fqtk_{stem}_walk_info")
+                info_fn.restype, info_fn.argtypes = _I32, WALK_INFO_POINTS[stem]
             _KERNELS[stem] = lib
     return getattr(_KERNELS[name], f"fqtk_{name}")
+
+
+def load_walk_info(name: str):
+    """Entry point ``fqtk_<name>_walk_info`` of ``csrc/<name>.cu``'s library
+    (:data:`WALK_INFO_POINTS`), loaded as :func:`load_kernel` loads."""
+    load_kernel(name)
+    return getattr(_KERNELS[name], f"fqtk_{name}_walk_info")
 
 
 def _dlopen_ok(path: Path) -> bool:

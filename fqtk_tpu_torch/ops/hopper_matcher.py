@@ -28,19 +28,23 @@ the no-call gate on the device.
   CUDA tensor each launches its ``csrc/*.cu`` kernel (counting launches),
   on a CPU tensor it runs the plain version (counting plain calls).  The
   choice is made by the input's device, never by catching an error.
+- :func:`walk_info` — registers, shared bytes and CTAs per SM of the
+  sliced depth walk's instantiation a launch at a length runs, as the card
+  reports them.
 - :func:`make_hopper_assign_fn` — ``obs -> (assigned, best, next)`` with the
   assignment gates.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ._build import load_kernel
+from ._build import load_kernel, load_walk_info
 from .device_encoding import pack_nib4, unpack_nib4
 from .matcher import (
     _PLAIN_CHUNK_ELEMS,
@@ -448,6 +452,31 @@ class _Top2Kernel:
             )
         self.launches += 1
         return out[0], out[1], out[2]
+
+
+#: the fields of :func:`walk_info`, in the order ``fqtk_<kernel>_walk_info``
+#: writes them
+WALK_INFO = ("registers", "static_smem", "dynamic_smem", "ctas_per_sm",
+             "local_bytes", "ring_stages")
+
+
+def walk_info(name: str, length: int, classes: int = 4) -> Dict[str, int]:
+    """What the card makes of the counting kernel of ``name`` (a scheme)
+    that a launch at barcode length ``length`` and ``classes`` runs, where
+    the table is deeper than 128 bytes (the sliced depth walk: nib4 rows at
+    L >= 9, bit2 rows at L >= 33): :data:`WALK_INFO`, with the launch's own
+    attributes set; ``ctas_per_sm`` is
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``'s.  Builds the kernels
+    on first use; needs the card (raises without one)."""
+    if name not in SCHEMES or classes not in CLASSES or table_depth(length, classes) <= 128:
+        raise ValueError(f"no sliced walk of {name!r} at L={length}, {classes} classes")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"walk_info({name!r}) needs an NVIDIA GPU")
+    out = (ctypes.c_int32 * len(WALK_INFO))()
+    rc = load_walk_info(name)(classes, table_depth(length, classes), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{name} walk_info failed: code {rc} (L={length}, {classes} classes)")
+    return dict(zip(WALK_INFO, out))
 
 
 class ColmergeTop2(_Top2Kernel):

@@ -5,7 +5,6 @@ byte to the JAX package's ``run_demux_multihost``.  The real two-process
 runs over gloo are ``test_torch_multiprocess.py``."""
 
 import gzip
-import socket
 
 import numpy as np
 import pytest
@@ -19,6 +18,7 @@ from fqtk_tpu_torch.parallel import distributed
 from fqtk_tpu_torch.parallel.distributed import merge_host_counts, run_demux_multihost
 from fqtk_tpu_torch.runtime.demux import DemuxConfig, run_demux
 
+from .test_torch_multiprocess import store_port
 from .util import fastq_file, metadata_file
 
 
@@ -114,10 +114,9 @@ def test_init_distributed_reads_the_environment(monkeypatch):
 def test_one_process_group_of_one():
     """A real gloo group of one process on this host: the rank and size it
     reports, a second ``init_distributed`` that does nothing, and the
-    collective itself."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    collective itself (its store on a port below the ephemeral range, as
+    the two-process tests' stores)."""
+    port = store_port()
     distributed.init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0)
     try:
         assert dist.is_initialized() and dist.get_backend() == "gloo"

@@ -357,6 +357,124 @@ def test_k_chunks_16_classes_on_card(monkeypatch, kernel):
     np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
 
 
+# --------------------------------------------------------------------------
+# the sliced depth walk (KP above 128: nib4 rows at L >= 9, bit2 rows at
+# L 33-255), its ring's edges and its two CTAs an SM
+# --------------------------------------------------------------------------
+
+#: (classes, L) of the walk's two instantiations: KP 256 (one stage a
+#: sub-tile, A built once: 16 classes at L 16, bit2 at L 33 and 64) and
+#: deeper (A built per stage; 3 slices at 16 classes L 24 and bit2 L 90, 4
+#: at bit2 L 100)
+WALK_FORMS = [(16, 16), (4, 64), (16, 24), (4, 33), (4, 90), (4, 100)]
+
+
+def walk_case(rng, k, length, b, classes):
+    """``(es, obs bytes, kernel rows on the card)``: :func:`mask_case` (ACGTN
+    reads) at 16 classes, :func:`grid_case` (ACGT) at 4."""
+    if classes == 16:
+        es, obs = mask_case(rng, k, length, b)
+        return es, obs, nib4_rows(obs).cuda()
+    es, obs = grid_case(rng, k, length, b)
+    return es, obs, torch.from_numpy(pack_bit2(obs)).cuda()
+
+
+def check_walk(kernel, es, obs, rows, length, classes):
+    """One launch of ``kernel`` equal to its plain version and the spec."""
+    k = es.count
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel, classes=classes)
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    got = kern(rows, state.table, k, length, classes)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.plain_calls) == (1, 0)
+    want = kern.reference(rows, state.table, k, length, classes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s_idx, s_best, s_next = spec(obs, es, 255, 0)  # every row passes the gates
+    np.testing.assert_array_equal(got[0].cpu().numpy(), s_best)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), s_idx)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), s_next)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("classes,length", WALK_FORMS)
+def test_sliced_walk_two_ctas_per_sm_on_card(kernel, classes, length):
+    """The walk's instantiations hold two CTAs an SM, with no spill."""
+    _need_card()
+    info = hm.walk_info(kernel, length, classes)
+    assert info["ctas_per_sm"] == 2, info
+    assert info["local_bytes"] == 0 and info["registers"] <= 128, info
+    assert info["static_smem"] + info["dynamic_smem"] <= 115 * 1024, info
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("classes,length", WALK_FORMS)
+@pytest.mark.parametrize("edge", ["one stage", "below the ring", "the ring", "one past"])
+def test_sliced_walk_ring_edges_on_card(kernel, classes, length, edge):
+    """A CTA's stage count below the ring's depth, equal to it and one past
+    it (one column range: K under 16 sub-tiles is never split), the last
+    sub-tile ragged."""
+    _need_card()
+    ring = hm.walk_info(kernel, length, classes)["ring_stages"]
+    groups = -(-hm.table_depth(length, classes) // 256)  # stages a sub-tile
+    stages = {"one stage": 1, "below the ring": ring - 1, "the ring": ring,
+              "one past": ring + 1}[edge]
+    n_sub = -(-stages // groups)
+    k = max(1, hm.K_ALIGN * n_sub - 3)
+    rng = np.random.default_rng(7 * length + stages)
+    es, obs, rows = walk_case(rng, k, length, 333, classes)
+    check_walk(kernel, es, obs, rows, length, classes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("classes,length", WALK_FORMS)
+@pytest.mark.parametrize("k", [1, 300, 8193])
+def test_sliced_walk_depths_on_card(kernel, classes, length, k):
+    """Odd and even slice counts, one column to a few chunks' worth."""
+    _need_card()
+    rng = np.random.default_rng(3000 * length + k + classes)
+    es, obs, rows = walk_case(rng, k, length, 333, classes)
+    check_walk(kernel, es, obs, rows, length, classes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["colmerge_top2", "tile_top2"])
+@pytest.mark.parametrize("classes,length", [(16, 16), (16, 24), (4, 64), (4, 100)])
+def test_sliced_walk_k_chunks_on_card(monkeypatch, kernel, classes, length):
+    """K = 2 * 8,192 + 5 split into many column ranges on the walk."""
+    _need_card()
+    rng = np.random.default_rng(41 + length)
+    k, b = 2 * 8192 + 5, 700
+    es, obs, rows = walk_case(rng, k, length, b, classes)
+    monkeypatch.setattr(hm, "MIN_CHUNK_SUBS", 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert hm.plan_chunks(b, k, 2 * sms)[0] >= 16
+    check_walk(kernel, es, obs, rows, length, classes)
+
+
+@pytest.mark.gpu
+def test_tile_top2_cross_tile_ties_16_classes_on_card():
+    """test_tile_top2_cross_tile_ties_on_card on nib4 rows (the walk at KP
+    256): duplicates in different K tiles, the first index wins."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    k, length = 3 * hm.TILE_K + 77, 16
+    seqs = rng.choice(ACGT, size=(k, length)).astype(np.uint8)
+    seqs[hm.TILE_K + 5] = seqs[3]
+    seqs[k - 1] = seqs[hm.TILE_K + 9]
+    es = ExpectedSet.from_barcodes([bytes(r).decode() for r in seqs])
+    obs = np.concatenate([seqs[[3, hm.TILE_K + 9, k - 1, k - 2]],
+                          rng.choice(ACGT, size=(200, length)).astype(np.uint8)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert hm.plan_chunks(len(obs), k, 2 * sms, hm.MAX_TILE_COLS)[0] > 3
+    got = check_walk("tile_top2", es, obs, nib4_rows(obs).cuda(), length, 16)
+    assert list(got[1].cpu().numpy()[:4]) == [3, hm.TILE_K + 9, hm.TILE_K + 9, k - 2]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", ["nib4", "bytes"])
 @pytest.mark.parametrize("k,length", [(96, 17), (1, 8), (300, 64)])

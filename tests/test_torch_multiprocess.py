@@ -6,10 +6,16 @@ Mirrors ``tests/test_multiprocess.py``; the merged outputs and metrics are
 held to the JAX package's single-process run over the concatenated input.
 
 Each test starts this file twice as a script (the worker at the bottom),
-one process per rank, and kills both if either outlives its timeout."""
+one process per rank, and kills both if either outlives its timeout.
+
+Rank 0's store listens on a port below the kernel's ephemeral range
+(:func:`store_port`): a test that picks its port by binding port 0 and hands
+it to a process still starting (``tests/test_multiprocess.py``'s JAX
+workers) draws from that range, so the two cannot pick the same port."""
 
 import gzip
 import json
+import random
 import socket
 import subprocess
 import sys
@@ -20,14 +26,31 @@ REPO = HERE.parent.parent
 TIMEOUT_S = 120
 
 
-def _free_port() -> int:
+def store_port() -> int:
+    """A random port that binds now on 127.0.0.1, below the ephemeral range
+    (``/proc/sys/net/ipv4/ip_local_port_range``) where the kernel picks a
+    port for a bind to port 0; that pick where the range starts too low to
+    leave room below it."""
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    for _ in range(64 if low > 12_000 else 0):
+        port = rng.randrange(10_000, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
 def _run_pair(mode: str, workdir: Path):
-    port = _free_port()
+    port = store_port()
     procs = [
         subprocess.Popen(
             [sys.executable, str(HERE), mode, str(pid), "2", str(port), str(workdir)],
