@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..utils.profiling import TRACER
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _REPO_ROOT = _PKG_DIR.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -174,14 +176,18 @@ def load_kernel(name: str):
     ``argtypes``/``restype`` declared.  The first call of a process builds
     (or reuses) and loads every kernel library."""
     if name not in _KERNELS:
-        for stem, info in build_kernels().items():
-            lib = ctypes.CDLL(str(info["path"]))
-            fn = getattr(lib, f"fqtk_{stem}")
-            fn.restype, fn.argtypes = _I32, ENTRY_POINTS[stem]
-            if stem in WALK_INFO_POINTS:
-                info_fn = getattr(lib, f"fqtk_{stem}_walk_info")
-                info_fn.restype, info_fn.argtypes = _I32, WALK_INFO_POINTS[stem]
-            _KERNELS[stem] = lib
+        with TRACER.setup_span("fqtk.setup.kernels") as counts:
+            built = build_kernels()
+            for stem, info in built.items():
+                lib = ctypes.CDLL(str(info["path"]))
+                fn = getattr(lib, f"fqtk_{stem}")
+                fn.restype, fn.argtypes = _I32, ENTRY_POINTS[stem]
+                if stem in WALK_INFO_POINTS:
+                    info_fn = getattr(lib, f"fqtk_{stem}_walk_info")
+                    info_fn.restype, info_fn.argtypes = _I32, WALK_INFO_POINTS[stem]
+                _KERNELS[stem] = lib
+            counts["built"] = sum(bool(info["built"]) for info in built.values())
+            counts["reused"] = len(built) - counts["built"]
     return getattr(_KERNELS[name], f"fqtk_{name}")
 
 

@@ -44,6 +44,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import TRACER
 from ._build import load_kernel, load_walk_info
 from .device_encoding import pack_nib4, unpack_nib4
 from .matcher import (
@@ -221,15 +222,21 @@ def hopper_state_from_numpy(
     if classes not in CLASSES:
         raise ValueError(f"classes must be one of {CLASSES}, got {classes}")
     k_pad = -(-k // K_ALIGN) * K_ALIGN
-    if classes == 4:
-        compat = torch.from_numpy(
-            np.ascontiguousarray(_compat_classmajor(expected.masks, k_pad, 4))
-        ).to(dev)
-    else:
-        compat = compat16_rows(expected.masks, k_pad, dev).T
+    span = TRACER.setup_span
+    with span("fqtk.setup.table", dev):
+        if classes == 4:
+            with span("fqtk.setup.table.compat"):
+                host = np.ascontiguousarray(_compat_classmajor(expected.masks, k_pad, 4))
+            with span("fqtk.setup.table.upload"):
+                compat = torch.from_numpy(host).to(dev)
+        else:
+            with span("fqtk.setup.table.compat", dev):
+                compat = compat16_rows(expected.masks, k_pad, dev).T
+        with span("fqtk.setup.table.pack", dev):
+            table = pack_table_i8(compat)
     return HopperState(
         scheme=scheme,
-        table=pack_table_i8(compat),
+        table=table,
         k=k,
         length=length,
         max_ns_in_barcodes=expected.max_ns_in_barcodes,
@@ -575,20 +582,24 @@ class HopperAssignFn:
         self, obs: Union[np.ndarray, torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         st = self.state
-        if isinstance(obs, np.ndarray):
-            obs = torch.from_numpy(np.ascontiguousarray(obs))
-        check_rows(obs, self.form, st.length)
-        # H2D is asynchronous for a CUDA state: the caller keeps the host
-        # buffer alive until it has fetched this call's result
-        best, idx, nxt, nocalls = self.top2(obs.to(st.device, non_blocking=True))
-        if st.k == 1:
-            nxt = torch.full_like(nxt, MAX_COUNT)
-        ok = (best <= self.max_mismatches) & (
-            nxt - best >= self.min_mismatch_delta
-        )
-        if nocalls is not None:
-            ok = ok & (nocalls <= self.nocall_budget)
-        assigned = torch.where(ok, idx, st.k).to(self.out_dtype)
+        with TRACER.span("fqtk.matcher.h2d"):
+            if isinstance(obs, np.ndarray):
+                obs = torch.from_numpy(np.ascontiguousarray(obs))
+            check_rows(obs, self.form, st.length)
+            # H2D is asynchronous for a CUDA state: the caller keeps the host
+            # buffer alive until it has fetched this call's result
+            obs = obs.to(st.device, non_blocking=True)
+        with TRACER.span("fqtk.matcher.launch"):
+            best, idx, nxt, nocalls = self.top2(obs)
+        with TRACER.span("fqtk.matcher.gate"):
+            if st.k == 1:
+                nxt = torch.full_like(nxt, MAX_COUNT)
+            ok = (best <= self.max_mismatches) & (
+                nxt - best >= self.min_mismatch_delta
+            )
+            if nocalls is not None:
+                ok = ok & (nocalls <= self.nocall_budget)
+            assigned = torch.where(ok, idx, st.k).to(self.out_dtype)
         return assigned, best, nxt
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..core.encoding import ENCODE_LUT, NOCALL_LUT, count_nocalls
 from ..io.native import NativeBigKMatcher, NativeDemuxError
+from ..utils.profiling import TRACER
 from .device_encoding import byte_is_nocall, byte_to_mask, unpack_bit2, unpack_nib4
 
 __all__ = [
@@ -69,15 +70,23 @@ class ExpectedSet:
     def from_barcodes(cls, barcodes: Sequence[str]) -> "ExpectedSet":
         if not barcodes:
             raise ValueError("Must provide at least one sample")
-        if any(len(b) == 0 for b in barcodes):
-            raise ValueError("Sample barcode cannot be empty string")
-        upper = [b.upper().encode("ascii") for b in barcodes]
-        length = len(upper[0])
-        if any(len(b) != length for b in upper):
-            raise ValueError("All barcodes must have the same length")
-        max_ns = max(count_nocalls(b) for b in upper)
-        arr = np.frombuffer(b"".join(upper), dtype=np.uint8).reshape(len(upper), length)
-        masks = ENCODE_LUT[arr]  # [K, L]
+        span = TRACER.setup_span
+        with span("fqtk.setup.expected"):
+            with span("fqtk.setup.expected.empty"):
+                if any(len(b) == 0 for b in barcodes):
+                    raise ValueError("Sample barcode cannot be empty string")
+            with span("fqtk.setup.expected.encode"):
+                upper = [b.upper().encode("ascii") for b in barcodes]
+            length = len(upper[0])
+            with span("fqtk.setup.expected.lengths"):
+                if any(len(b) != length for b in upper):
+                    raise ValueError("All barcodes must have the same length")
+            with span("fqtk.setup.expected.nocalls"):
+                max_ns = max(count_nocalls(b) for b in upper)
+            with span("fqtk.setup.expected.masks"):
+                arr = np.frombuffer(b"".join(upper), dtype=np.uint8).reshape(
+                    len(upper), length)
+                masks = ENCODE_LUT[arr]  # [K, L]
         return cls(
             masks=masks,
             max_ns_in_barcodes=max_ns,

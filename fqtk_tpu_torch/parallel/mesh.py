@@ -57,6 +57,7 @@ from ..ops.matcher import (
     merge_top2,
     resolve_device,
 )
+from ..utils.profiling import TRACER
 
 __all__ = [
     "DemuxMesh", "ShardedAssignFn", "local_devices", "make_demux_mesh",
@@ -271,28 +272,31 @@ def make_sharded_assign_fn(
         scheme = ScanAssignFn.scheme
 
     tiles: List[List[Optional[Matcher]]] = [[None] * n_k_shards for _ in range(n_batch)]
-    for s in range(n_k_shards):
-        masks = expected.masks[s * k_per_shard:(s + 1) * k_per_shard]
-        if not len(masks):
-            continue
-        shard = ExpectedSet(masks=masks, max_ns_in_barcodes=expected.max_ns_in_barcodes,
-                            length=length, count=len(masks))
-        # one matcher per device the shard lands on: grid rows on one
-        # device share it
-        built: Dict[torch.device, Matcher] = {}
-        for i in range(n_batch):
-            dev = mesh.devices[i][s]
-            if dev in built:
-                pass
-            elif use_kernels:
-                state = hopper_state_from_numpy(shard, dev, scheme,
-                                                classes=4 if form == "bit2" else 16)
-                built[dev] = HopperAssignFn(state, max_mismatches, min_mismatch_delta,
-                                            False, form, kernels=kernels)
-            else:
-                built[dev] = make_assign_fn(shard, max_mismatches, min_mismatch_delta,
-                                            k_chunk, packed_masks, packed2, device=dev)
-            tiles[i][s] = built[dev]
+    # one set-up span over the shards' tables (host time: the shards'
+    # device work is queued on their own devices)
+    with TRACER.setup_span("fqtk.setup.table"):
+        for s in range(n_k_shards):
+            masks = expected.masks[s * k_per_shard:(s + 1) * k_per_shard]
+            if not len(masks):
+                continue
+            shard = ExpectedSet(masks=masks, max_ns_in_barcodes=expected.max_ns_in_barcodes,
+                                length=length, count=len(masks))
+            # one matcher per device the shard lands on: grid rows on one
+            # device share it
+            built: Dict[torch.device, Matcher] = {}
+            for i in range(n_batch):
+                dev = mesh.devices[i][s]
+                if dev in built:
+                    pass
+                elif use_kernels:
+                    state = hopper_state_from_numpy(shard, dev, scheme,
+                                                    classes=4 if form == "bit2" else 16)
+                    built[dev] = HopperAssignFn(state, max_mismatches, min_mismatch_delta,
+                                                False, form, kernels=kernels)
+                else:
+                    built[dev] = make_assign_fn(shard, max_mismatches, min_mismatch_delta,
+                                                k_chunk, packed_masks, packed2, device=dev)
+                tiles[i][s] = built[dev]
     return ShardedAssignFn(mesh, tiles, expected, k_per_shard, max_mismatches,
                            min_mismatch_delta, form, scheme, use_kernels, kernels,
                            compact_output, with_counts)

@@ -39,7 +39,7 @@ import logging
 import os
 import stat
 import time
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -63,7 +63,7 @@ from ..ops.hopper_matcher import make_hopper_assign_fn, resolve_device
 from ..ops.matcher import ExpectedSet, ScanAssignFn, assign_batch_np, make_assign_fn
 from ..parallel import mesh as mesh_mod
 from ..utils.floatfmt import format_f64
-from ..utils.profiling import StageTimers, maybe_device_trace
+from ..utils.profiling import TRACER, StageTimers, maybe_device_trace
 
 __all__ = ["DemuxConfig", "DemuxError", "DemuxResult", "run_demux"]
 
@@ -136,8 +136,9 @@ class DemuxResult:
     #: and ``plain_calls`` over both Hopper kernels and
     #: ``<kernel>_launches`` / ``<kernel>_plain_calls`` for each; the
     #: ``xla_scan`` route runs no kernel (``launches`` and ``plain_calls``
-    #: 0) and counts its ``calls``; empty when a host matcher or the NumPy
-    #: spec ran
+    #: 0) and counts its ``calls``; the native engine's window dedup adds
+    #: ``dedup_<count>`` for each of :class:`DedupCounts`; empty when a host
+    #: matcher or the NumPy spec ran
     matcher: Dict[str, Union[int, str]] = field(default_factory=dict)
 
 
@@ -321,18 +322,30 @@ def _host_assign_wrapper(matcher):
 class _Pending:
     """A dispatched device call.  ``fetch()`` waits for the device, copies
     the result to the host and applies ``finish`` (the dedup scatter).
-    ``keep`` holds the host source of an asynchronous H2D copy until then."""
+    ``keep`` holds the host source of an asynchronous H2D copy until then.
+    ``window`` is the traced window's id (:data:`TRACER`) and ``event`` a
+    CUDA event recorded after the call's own device work, while a profiler
+    records (``None`` otherwise): the fetch's spans wait on it first."""
 
-    __slots__ = ("dev", "finish", "keep")
+    __slots__ = ("dev", "finish", "keep", "window", "event")
 
     def __init__(self, dev: torch.Tensor, finish=None, keep=None) -> None:
         self.dev = dev
         self.finish = finish
         self.keep = keep
+        self.window = TRACER.window
+        self.event = TRACER.device_event(dev)
 
     def fetch(self) -> np.ndarray:
-        host = self.dev.cpu().numpy()
-        return host if self.finish is None else self.finish(host)
+        with TRACER.span("fqtk.fetch.own", self.window):
+            if self.event is not None:
+                self.event.synchronize()
+        with TRACER.span("fqtk.fetch.copy", self.window):
+            host = self.dev.cpu().numpy()
+        if self.finish is None:
+            return host
+        with TRACER.span("fqtk.dedup.scatter", self.window):
+            return self.finish(host)
 
 
 # --------------------------------------------------------------------------
@@ -867,7 +880,8 @@ def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
     )
 
     def assign(obs_packed):
-        return _Pending(fn(obs_packed)[0], keep=obs_packed)
+        with TRACER.span("fqtk.matcher"):
+            return _Pending(fn(obs_packed)[0], keep=obs_packed)
 
     wrapped = _wrap_window_dedup(assign)
     wrapped.device_matcher = fn
@@ -906,11 +920,30 @@ def _build_mesh_side(cfg: DemuxConfig, expected: ExpectedSet, local, n_batch: in
     )
 
     def assign(obs_packed):
-        return _Pending(fn(obs_packed), keep=obs_packed)
+        with TRACER.span("fqtk.matcher"):
+            return _Pending(fn(obs_packed), keep=obs_packed)
 
     wrapped = _wrap_window_dedup(assign)
     wrapped.device_matcher = fn
     return wrapped, ("bit2" if kernels else "nib4"), False
+
+
+@dataclass
+class DedupCounts:
+    """Cumulative counts of one window dedup (``assign.dedup``): windows
+    seen, windows where it engaged or declined after its ``np.unique``,
+    rows in, distinct rows of the windows it examined, rows sent to the
+    device matcher (the bucket where it engaged, every row otherwise), and
+    the distinct rows and buckets of the windows where it engaged."""
+
+    windows: int = 0
+    engaged: int = 0
+    declined: int = 0
+    rows_in: int = 0
+    distinct: int = 0
+    rows_sent: int = 0
+    engaged_distinct: int = 0
+    engaged_sent: int = 0
 
 
 def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
@@ -923,35 +956,50 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
     bytes and >= 2x duplication.  ``FQTK_DEVICE_DEDUP=0`` disables.
 
     It logs the first window it shrinks in each run: ``assign.start_run()``
-    re-arms the line, since a cached matcher serves many runs."""
+    re-arms the line, since a cached matcher serves many runs.  It counts
+    in ``assign.dedup`` (:class:`DedupCounts`), and gives each window its
+    id in :data:`TRACER` while a profiler records (whose record reads the
+    counts over its session)."""
     if os.environ.get("FQTK_DEVICE_DEDUP", "1") == "0":
         return call
 
     logged = False
+    counts = DedupCounts()
 
     def assign(obs_packed):
         nonlocal logged
+        TRACER.begin_window(counts)
         obs = np.asarray(obs_packed)
         b, w = obs.shape
+        counts.windows += 1
+        counts.rows_in += b
+        pending = None
         if b >= 4096 and w <= 8:
-            obs = np.ascontiguousarray(obs)
-            if w in (1, 2, 4, 8):
-                keys = obs.view(f"u{w}").reshape(b)
-            else:
-                full = np.zeros((b, 8), dtype=np.uint8)
-                full[:, :w] = obs
-                keys = full.view(np.uint64).reshape(b)
-            uniq, first_idx, inv = np.unique(
-                keys, return_index=True, return_inverse=True
-            )
+            with TRACER.span("fqtk.dedup.unique"):
+                obs = np.ascontiguousarray(obs)
+                if w in (1, 2, 4, 8):
+                    keys = obs.view(f"u{w}").reshape(b)
+                else:
+                    full = np.zeros((b, 8), dtype=np.uint8)
+                    full[:, :w] = obs
+                    keys = full.view(np.uint64).reshape(b)
+                uniq, first_idx, inv = np.unique(
+                    keys, return_index=True, return_inverse=True
+                )
             nu = len(uniq)
             bucket = max(4096, 1 << max(0, (nu - 1).bit_length()))
+            counts.distinct += nu
             if nu <= b // 2 and bucket < b:
-                rows = obs[first_idx]
-                if bucket > nu:
-                    rows = np.concatenate(
-                        [rows, np.broadcast_to(rows[:1], (bucket - nu, w))]
-                    )
+                counts.engaged += 1
+                counts.engaged_distinct += nu
+                counts.engaged_sent += bucket
+                with TRACER.span("fqtk.dedup.gather"):
+                    rows = obs[first_idx]
+                    if bucket > nu:
+                        rows = np.concatenate(
+                            [rows, np.broadcast_to(rows[:1], (bucket - nu, w))]
+                        )
+                    rows = np.ascontiguousarray(rows)
                 if not logged:
                     logged = True
                     logger.info(
@@ -961,44 +1009,56 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
                         b,
                         bucket,
                     )
-                inner = call(np.ascontiguousarray(rows))
+                counts.rows_sent += bucket
+                pending = call(rows)
                 # results of the bucket's pad rows are dropped ([:nu])
-                return _Pending(
-                    inner.dev, finish=lambda h: h[:nu][inv], keep=inner.keep
-                )
-        return call(obs_packed)
+                pending.finish = lambda h: h[:nu][inv]
+            else:
+                counts.declined += 1
+        if pending is None:
+            counts.rows_sent += b
+            pending = call(obs_packed)
+        TRACER.end_window()
+        return pending
 
     def start_run() -> None:
         nonlocal logged
         logged = False
 
     assign.start_run = start_run
+    assign.dedup = counts
     return assign
 
 
-def _matcher_counts(fn) -> Dict[str, int]:
+def _matcher_counts(fn, dedup: Optional[DedupCounts] = None) -> Dict[str, int]:
     """The cumulative counters of a device matcher (``HopperAssignFn``,
-    ``ScanAssignFn`` or a mesh's ``ShardedAssignFn``); empty for none."""
+    ``ScanAssignFn`` or a mesh's ``ShardedAssignFn``), with its window
+    dedup's (``dedup_<count>``) where one wraps it; empty for none."""
     if fn is None:
         return {}
     if fn.scheme == ScanAssignFn.scheme:
         # the route of barcodes longer than 255 bp runs no kernel
-        return {"launches": 0, "plain_calls": 0, "calls": fn.calls}
-    counts = {"launches": fn.launches, "plain_calls": fn.plain_calls}
-    for name, kern in fn.kernels.items():
-        counts[f"{name}_launches"] = kern.launches
-        counts[f"{name}_plain_calls"] = kern.plain_calls
+        counts = {"launches": 0, "plain_calls": 0, "calls": fn.calls}
+    else:
+        counts = {"launches": fn.launches, "plain_calls": fn.plain_calls}
+        for name, kern in fn.kernels.items():
+            counts[f"{name}_launches"] = kern.launches
+            counts[f"{name}_plain_calls"] = kern.plain_calls
+    if dedup is not None:
+        counts.update({f"dedup_{k}": v for k, v in asdict(dedup).items()})
     return counts
 
 
-def _run_counts(fn, before: Dict[str, int]) -> Dict[str, Union[int, str]]:
+def _run_counts(fn, before: Dict[str, int],
+                dedup: Optional[DedupCounts] = None) -> Dict[str, Union[int, str]]:
     """``DemuxResult.matcher`` of one run: ``fn``'s route and its counters
-    less ``before``, their values when the run started (a cached matcher
-    carries the counts of earlier runs); empty for no device matcher."""
+    (and ``dedup``'s) less ``before``, their values when the run started (a
+    cached matcher carries the counts of earlier runs); empty for no device
+    matcher."""
     if fn is None:
         return {}
     stats: Dict[str, Union[int, str]] = {"scheme": fn.scheme}
-    for name, value in _matcher_counts(fn).items():
+    for name, value in _matcher_counts(fn, dedup).items():
         stats[name] = value - before.get(name, 0)
     return stats
 
@@ -1093,6 +1153,7 @@ def run_demux(cfg: DemuxConfig) -> DemuxResult:
 def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
     """Driver loop of ``fqtk_tpu.runtime.demux._run_demux_native``, with the
     device results fetched through :meth:`_Pending.fetch`."""
+    t_run = time.perf_counter()
     output, output_types = validate_and_prepare(cfg)
     skip_too_few = _too_few_bases_allowed(cfg)
 
@@ -1109,7 +1170,8 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
         cfg, expected, barcodes=[s.barcode for s in sample_group.samples]
     )
     device_matcher = getattr(assign, "device_matcher", None)
-    counts_before = _matcher_counts(device_matcher)
+    dedup = getattr(assign, "dedup", None)
+    counts_before = _matcher_counts(device_matcher, dedup)
     getattr(assign, "start_run", lambda: None)()
 
     packed_len = (bc_len + 3) // 4 if pack_mode == "bit2" else (bc_len + 1) // 2
@@ -1316,8 +1378,9 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
         for reason, count in sorted(skip_counts.items(), key=lambda kv: kv[1]):
             logger.info("%d records were skipped due to Too few bases", count)
 
-    matcher_stats = _run_counts(device_matcher, counts_before)
+    matcher_stats = _run_counts(device_matcher, counts_before, dedup)
     _log_counts(matcher_stats)
+    TRACER.log_setup(since=t_run)
 
     metrics = compute_metrics(sample_group, counts, cfg.unmatched_prefix)
     write_metrics(output / "demux-metrics.txt", metrics)
@@ -1350,6 +1413,13 @@ def _log_counts(stats: Dict[str, Union[int, str]]) -> None:
             scheme,
             stats[f"{scheme}_launches"],
             stats[f"{scheme}_plain_calls"],
+        )
+    if "dedup_windows" in stats:
+        logger.info(
+            "window dedup: %d windows (%d engaged, %d declined), %d rows in, "
+            "%d distinct, %d sent",
+            *(stats[f"dedup_{k}"] for k in (
+                "windows", "engaged", "declined", "rows_in", "distinct", "rows_sent")),
         )
 
 
