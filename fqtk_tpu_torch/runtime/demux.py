@@ -319,29 +319,60 @@ def _host_assign_wrapper(matcher):
     return assign
 
 
+@dataclass
+class FetchCounts:
+    """Cumulative counts of a device side's fetches (``assign.fetches``):
+    those served by a result's own copy to pinned memory (a result on a
+    card), and of those the ones whose copy had not ended when the fetch
+    began (the host waited on the device)."""
+
+    fetch_async: int = 0
+    fetch_waited: int = 0
+
+
 class _Pending:
-    """A dispatched device call.  ``fetch()`` waits for the device, copies
-    the result to the host and applies ``finish`` (the dedup scatter).
-    ``keep`` holds the host source of an asynchronous H2D copy until then.
-    ``window`` is the traced window's id (:data:`TRACER`) and ``event`` a
-    CUDA event recorded after the call's own device work, while a profiler
-    records (``None`` otherwise): the fetch's spans wait on it first."""
+    """A dispatched device call.  ``fetch()`` waits for the call's own
+    device work, hands its result to the host and applies ``finish`` (the
+    dedup scatter).  ``keep`` holds the host source of an asynchronous H2D
+    copy until then.  ``window`` is the traced window's id (:data:`TRACER`).
 
-    __slots__ = ("dev", "finish", "keep", "window", "event")
+    A result on a card is copied to pinned host memory (PyTorch's caching
+    host allocator) in stream order right after the call's own work, and
+    ``event`` is recorded after that copy: the fetch waits on it alone, not
+    on work queued behind it, such as the next window's kernel.  It hands
+    out memory of its own, so the pinned block goes back to the allocator,
+    which reuses it only once its copy has ended.  A result on the CPU has
+    no event.  ``counts`` (:class:`FetchCounts`), where given, counts the
+    fetches of results on a card."""
 
-    def __init__(self, dev: torch.Tensor, finish=None, keep=None) -> None:
-        self.dev = dev
+    __slots__ = ("result", "finish", "keep", "window", "event", "counts")
+
+    def __init__(self, dev: torch.Tensor, finish=None, keep=None,
+                 counts: Optional[FetchCounts] = None) -> None:
+        self.result = dev
         self.finish = finish
         self.keep = keep
         self.window = TRACER.window
-        self.event = TRACER.device_event(dev)
+        self.counts = counts
+        self.event = None
+        if dev.is_cuda:
+            stream = torch.cuda.current_stream(dev.device)
+            self.result = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            self.result.copy_(dev, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
 
     def fetch(self) -> np.ndarray:
         with TRACER.span("fqtk.fetch.own", self.window):
             if self.event is not None:
+                if self.counts is not None:
+                    self.counts.fetch_async += 1
+                    self.counts.fetch_waited += int(not self.event.query())
                 self.event.synchronize()
         with TRACER.span("fqtk.fetch.copy", self.window):
-            host = self.dev.cpu().numpy()
+            host = self.result.cpu().numpy()
+            if self.event is not None:
+                host = host.copy()
         if self.finish is None:
             return host
         with TRACER.span("fqtk.dedup.scatter", self.window):
@@ -879,13 +910,7 @@ def _build_device_side(cfg: DemuxConfig, expected: ExpectedSet):
         "device matcher: %s (K=%d, L=%d)", route, expected.count, expected.length
     )
 
-    def assign(obs_packed):
-        with TRACER.span("fqtk.matcher"):
-            return _Pending(fn(obs_packed)[0], keep=obs_packed)
-
-    wrapped = _wrap_window_dedup(assign)
-    wrapped.device_matcher = fn
-    return wrapped, "bit2", False
+    return _window_side(fn, lambda obs_packed: fn(obs_packed)[0]), "bit2", False
 
 
 def _build_mesh_side(cfg: DemuxConfig, expected: ExpectedSet, local, n_batch: int,
@@ -919,13 +944,24 @@ def _build_mesh_side(cfg: DemuxConfig, expected: ExpectedSet, local, n_batch: in
         fn.scheme, fn.k_per_shard, expected.count, expected.length,
     )
 
+    return _window_side(fn, fn), ("bit2" if kernels else "nib4"), False
+
+
+def _window_side(fn, call: Callable[[np.ndarray], torch.Tensor]):
+    """The window path around the device matcher ``fn``: ``call(obs)`` (its
+    assignments) as a :class:`_Pending`, behind :func:`_wrap_window_dedup`.
+    ``assign.device_matcher`` is ``fn`` and ``assign.fetches`` the
+    :class:`FetchCounts` of its fetches."""
+    fetches = FetchCounts()
+
     def assign(obs_packed):
         with TRACER.span("fqtk.matcher"):
-            return _Pending(fn(obs_packed), keep=obs_packed)
+            return _Pending(call(obs_packed), keep=obs_packed, counts=fetches)
 
     wrapped = _wrap_window_dedup(assign)
     wrapped.device_matcher = fn
-    return wrapped, ("bit2" if kernels else "nib4"), False
+    wrapped.fetches = fetches
+    return wrapped
 
 
 @dataclass
@@ -1030,10 +1066,12 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
     return assign
 
 
-def _matcher_counts(fn, dedup: Optional[DedupCounts] = None) -> Dict[str, int]:
+def _matcher_counts(fn, dedup: Optional[DedupCounts] = None,
+                    fetches: Optional[FetchCounts] = None) -> Dict[str, int]:
     """The cumulative counters of a device matcher (``HopperAssignFn``,
     ``ScanAssignFn`` or a mesh's ``ShardedAssignFn``), with its window
-    dedup's (``dedup_<count>``) where one wraps it; empty for none."""
+    dedup's (``dedup_<count>``) where one wraps it and its fetches'
+    (:class:`FetchCounts`) where given; empty for none."""
     if fn is None:
         return {}
     if fn.scheme == ScanAssignFn.scheme:
@@ -1046,19 +1084,21 @@ def _matcher_counts(fn, dedup: Optional[DedupCounts] = None) -> Dict[str, int]:
             counts[f"{name}_plain_calls"] = kern.plain_calls
     if dedup is not None:
         counts.update({f"dedup_{k}": v for k, v in asdict(dedup).items()})
+    if fetches is not None:
+        counts.update(asdict(fetches))
     return counts
 
 
-def _run_counts(fn, before: Dict[str, int],
-                dedup: Optional[DedupCounts] = None) -> Dict[str, Union[int, str]]:
+def _run_counts(fn, before: Dict[str, int], dedup: Optional[DedupCounts] = None,
+                fetches: Optional[FetchCounts] = None) -> Dict[str, Union[int, str]]:
     """``DemuxResult.matcher`` of one run: ``fn``'s route and its counters
-    (and ``dedup``'s) less ``before``, their values when the run started (a
-    cached matcher carries the counts of earlier runs); empty for no device
-    matcher."""
+    (and ``dedup``'s and ``fetches``') less ``before``, their values when
+    the run started (a cached matcher carries the counts of earlier runs);
+    empty for no device matcher."""
     if fn is None:
         return {}
     stats: Dict[str, Union[int, str]] = {"scheme": fn.scheme}
-    for name, value in _matcher_counts(fn, dedup).items():
+    for name, value in _matcher_counts(fn, dedup, fetches).items():
         stats[name] = value - before.get(name, 0)
     return stats
 
@@ -1171,7 +1211,8 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
     )
     device_matcher = getattr(assign, "device_matcher", None)
     dedup = getattr(assign, "dedup", None)
-    counts_before = _matcher_counts(device_matcher, dedup)
+    fetches = getattr(assign, "fetches", None)
+    counts_before = _matcher_counts(device_matcher, dedup, fetches)
     getattr(assign, "start_run", lambda: None)()
 
     packed_len = (bc_len + 3) // 4 if pack_mode == "bit2" else (bc_len + 1) // 2
@@ -1378,7 +1419,7 @@ def _run_demux_native(cfg: DemuxConfig) -> DemuxResult:
         for reason, count in sorted(skip_counts.items(), key=lambda kv: kv[1]):
             logger.info("%d records were skipped due to Too few bases", count)
 
-    matcher_stats = _run_counts(device_matcher, counts_before, dedup)
+    matcher_stats = _run_counts(device_matcher, counts_before, dedup, fetches)
     _log_counts(matcher_stats)
     TRACER.log_setup(since=t_run)
 
@@ -1420,6 +1461,11 @@ def _log_counts(stats: Dict[str, Union[int, str]]) -> None:
             "%d distinct, %d sent",
             *(stats[f"dedup_{k}"] for k in (
                 "windows", "engaged", "declined", "rows_in", "distinct", "rows_sent")),
+        )
+    if "fetch_async" in stats:
+        logger.info(
+            "window fetch: %d from pinned copies, %d of them waited on the device",
+            stats["fetch_async"], stats["fetch_waited"],
         )
 
 

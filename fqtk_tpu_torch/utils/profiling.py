@@ -13,9 +13,9 @@
   ``record_function`` range, on the trace's clock beside the kernels and
   copies, and is kept in memory with the window dedup's counts over the
   session (:meth:`Tracer.program_record`).  With no profiler recording a
-  span site costs one flag test: no range is entered, no clock read and no
-  CUDA event recorded.  Set-up spans (:meth:`Tracer.setup_span`) record
-  always, in memory; the demux logs its run's (:meth:`Tracer.log_setup`).
+  span site costs one flag test: no range is entered and no clock read.
+  Set-up spans (:meth:`Tracer.setup_span`) record always, in memory; the
+  demux logs its run's (:meth:`Tracer.log_setup`).
 
 Span names (``fqtk.`` + layer + part):
 
@@ -27,8 +27,9 @@ Span names (``fqtk.`` + layer + part):
 ``fqtk.matcher.launch`` ``HopperAssignFn``: the kernel's top-2
 ``fqtk.matcher.gate``   ``HopperAssignFn``: the assignment gates
 ``fqtk.fetch.own``      ``_Pending.fetch``: wait for the window's own work
-``fqtk.fetch.copy``     ``_Pending.fetch``: the D2H copy, and the wait behind
-                        work queued after the window's own
+                        and, on a card, its D2H copy to pinned memory
+``fqtk.fetch.copy``     ``_Pending.fetch``: the result handed to the host
+                        after that (on the CPU, ``.numpy()``)
 ``fqtk.dedup.scatter``  the results scattered back through the inverse map
 ``fqtk.setup.expected`` ``ExpectedSet.from_barcodes`` (children ``.empty``,
                         ``.encode``, ``.lengths``, ``.nocalls``, ``.masks``)
@@ -262,9 +263,10 @@ class Tracer:
 
     def log_setup(self, since: float) -> None:
         """Log, in one line, the set-up spans that started at ``since``
-        (``perf_counter``) or later: each outermost one's seconds with its
-        children's and its counts."""
-        spans = [s for s in self.setup.values() if s.start >= since]
+        (``perf_counter``) or later, in the order they started: each
+        outermost one's seconds with its children's and its counts."""
+        spans = sorted((s for s in self.setup.values() if s.start >= since),
+                       key=lambda s: s.start)
         parts = []
         for span in spans:
             if any(span.name.startswith(f"{p.name}.") for p in spans):
@@ -297,16 +299,6 @@ class Tracer:
 
     def end_window(self) -> None:
         self.window = None
-
-    @staticmethod
-    def device_event(dev: torch.Tensor):
-        """A CUDA event recorded now on ``dev``'s current stream, while a
-        profiler records and ``dev`` is on a card; else ``None``."""
-        if not _autograd_profiler._is_profiler_enabled or not dev.is_cuda:
-            return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev.device))
-        return event
 
     def program_record(self) -> Optional[ProgramRecord]:
         """The newest session's record (closed if its session has ended), or

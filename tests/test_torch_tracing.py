@@ -6,8 +6,8 @@ window dedup's counts against a hand-computed dedup."""
 import gzip
 import json
 import logging
+import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -103,28 +103,8 @@ def test_no_profiler_enters_no_range_records_no_span_and_no_event(side, monkeypa
     assert TRACER.program_record() is before
     assert (len(before.spans) if before is not None else 0) == n_spans
     assert TRACER.window is None
-    # a result on a card would record its event only while profiling
-    fake_cuda = SimpleNamespace(is_cuda=True, device=torch.device("cuda", 0))
-    assert TRACER.device_event(fake_cuda) is None
     with profiling.StageTimers().time("assign"):
         pass
-
-
-def test_event_recorded_on_a_card_only_while_profiling(monkeypatch):
-    made = []
-
-    class FakeEvent:
-        def record(self, stream):
-            made.append(stream)
-
-    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: f"stream of {dev}")
-    fake_cuda = SimpleNamespace(is_cuda=True, device=torch.device("cuda", 0))
-    assert TRACER.device_event(fake_cuda) is None
-    _, event = _profiled(lambda: TRACER.device_event(fake_cuda))
-    assert isinstance(event, FakeEvent) and made == ["stream of cuda:0"]
-    _, none = _profiled(lambda: TRACER.device_event(torch.zeros(1)))
-    assert none is None
 
 
 def test_profiled_windows_give_named_nested_spans(side, tmp_path):
@@ -282,6 +262,24 @@ def test_setup_spans_log_one_line(caplog):
     assert line.endswith("; fqtk.setup.kernels 0.000 s (built 0, reused 3)")
 
 
+def test_setup_spans_log_in_the_order_they_started(caplog):
+    """A name first seen in an earlier set-up (a table built before any
+    whitelist was encoded in this process) does not lead the line."""
+    tracer = profiling.Tracer()
+    with tracer.setup_span("fqtk.setup.table"):
+        pass
+    since = time.perf_counter()
+    with tracer.setup_span("fqtk.setup.expected"):
+        pass
+    with tracer.setup_span("fqtk.setup.table"):
+        pass
+    with caplog.at_level(logging.INFO, logger="fqtk"):
+        tracer.log_setup(since=since)
+    [line] = [r.getMessage() for r in caplog.records]
+    assert line.startswith("set-up spans: fqtk.setup.expected ")
+    assert "; fqtk.setup.table " in line
+
+
 def test_a_second_session_sees_only_its_own_spans(side):
     assign, ascii_rows = side
     _profiled(lambda: _stream(assign, [_clustered(ascii_rows)] * 2))
@@ -355,6 +353,9 @@ def test_demux_reports_dedup_counts_and_traces_its_stages(tmp_path, monkeypatch,
     assert m["dedup_rows_in"] == 20_000 and m["dedup_distinct"] <= 2 * 24
     assert m["dedup_rows_sent"] == 2 * 4096 + 3616
     assert "window dedup: 3 windows (2 engaged, 0 declined)" in caplog.text
+    # results on the CPU take no pinned copy
+    assert m["fetch_async"] == 0 and m["fetch_waited"] == 0
+    assert "window fetch: 0 from pinned copies, 0 of them waited" in caplog.text
     # the run's set-up spans, in one line
     assert "set-up spans: fqtk.setup.expected " in caplog.text
     assert "(empty " in caplog.text and ", masks " in caplog.text
