@@ -13,14 +13,11 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from benchmark import run
+from benchmark import common, run
+from benchmark.tests.cells import cells, cpu_size
 from fqtk_tpu_torch.runtime import demux
 
-WINDOW = {"deployment": {"whitelist_size": 50000},
-          "traffic": {"window_reads": 8192, "cells": 300, "pool_reads_per_s": 300000}}
-CELLS = [("sc_v3.cells8k", WINDOW), ("sc_v3.uniform", WINDOW)]
-#: the unmatched index of each cell at its test size
-UNMATCHED = {"sc_v3.cells8k": 50000, "sc_v3.uniform": 50000}
+CELLS = cells()
 
 
 @pytest.fixture(autouse=True)
@@ -52,27 +49,44 @@ def _half_left_out(monkeypatch, unmatched):
     monkeypatch.setattr(demux._Pending, "fetch", half)
 
 
-@pytest.mark.parametrize("cell,size", CELLS)
-def test_sound_run_is_correct(cell, size):
-    r = run.run_cell(cell, 2**32 + 9, 0.3, False, device="cpu", overrides=size)
-    assert r["correct"] is True
+def _run_faults_size(cell, seed, root, control=False):
+    return run.run_cell(cell, seed, 0.3, False, device="cpu", root=root, control=control,
+                        overrides=cpu_size(cell, "faults", root))
 
 
-@pytest.mark.parametrize("fault", [_altered, _half_left_out])
-@pytest.mark.parametrize("cell,size", CELLS)
-def test_fault_is_not_correct(cell, size, fault, monkeypatch):
-    fault(monkeypatch, UNMATCHED[cell])
-    r = run.run_cell(cell, 2**32 + 9, 0.3, False, device="cpu", overrides=size)
+def check_sound(cell, root=common.ROOT):
+    assert _run_faults_size(cell, 2**32 + 9, root)["correct"] is True
+
+
+def check_fault(cell, fault, monkeypatch, root=common.ROOT):
+    # the unmatched index: the whitelist's size
+    fault(monkeypatch, cpu_size(cell, "faults", root)["deployment"]["whitelist_size"])
+    r = _run_faults_size(cell, 2**32 + 9, root)
     assert r["correct"] is False
     assert any(c["value"] > c["limit"] for c in r["checks"].values())
 
 
-@pytest.mark.parametrize("cell,size", CELLS)
-def test_control_is_not_correct(cell, size):
-    r = run.run_cell(cell, 2**32 + 10, 0.3, False, device="cpu", overrides=size, control=True)
+def check_control(cell, root=common.ROOT):
+    r = _run_faults_size(cell, 2**32 + 10, root, control=True)
     assert r["correct"] is False
     worst = max(c["value"] for c in r["checks"].values())
     assert worst > 10 * max(1, max(c["limit"] for c in r["checks"].values()))
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_run_is_correct(cell):
+    check_sound(cell)
+
+
+@pytest.mark.parametrize("fault", [_altered, _half_left_out])
+@pytest.mark.parametrize("cell", CELLS)
+def test_fault_is_not_correct(cell, fault, monkeypatch):
+    check_fault(cell, fault, monkeypatch)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_is_not_correct(cell):
+    check_control(cell)
 
 
 def test_the_fault_hook_is_on_the_timed_path(monkeypatch):
@@ -85,5 +99,6 @@ def test_the_fault_hook_is_on_the_timed_path(monkeypatch):
         return fetch(self)
 
     monkeypatch.setattr(demux._Pending, "fetch", counted)
-    r = run.run_cell("sc_v3.cells8k", 3, 0.3, False, device="cpu", overrides=WINDOW)
+    r = run.run_cell("sc_v3.cells8k", 3, 0.3, False, device="cpu",
+                      overrides=cpu_size("sc_v3.cells8k", "faults"))
     assert len(seen) >= r["attempted"] > 0

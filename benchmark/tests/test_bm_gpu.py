@@ -7,7 +7,9 @@ from __future__ import annotations
 import pytest
 
 from benchmark import run
-from benchmark.tests.test_bm_harness import CELLS
+from benchmark.tests.cells import cells
+
+CELLS = cells()
 
 
 @pytest.fixture
