@@ -77,7 +77,8 @@ MAX_K = 1 << 23
 #: CTA's K tile: the largest K tile
 MAX_TILE_COLS = 1 << 23
 
-#: rows per CTA of both kernels (csrc/mma_count.cuh kRows)
+#: rows per CTA of both kernels (csrc/mma_count.cuh kRows); the window
+#: dedup rounds its bucket up to it
 ROWS_PER_CTA = 128
 
 #: CTAs of either kernel that share an SM (registers and shared memory)
@@ -86,6 +87,22 @@ CTAS_PER_SM = 2
 #: fewest 128-column sub-tiles a CTA keeps when K is split: below that the
 #: split's second pass costs more than the idle SMs
 MIN_CHUNK_SUBS = 16
+
+#: the time a CTA alone on an SM takes, as a share of two co-resident ones'
+#: (tile_top2 at K 6,794,880 on an H100 SXM, 700 W: B 16,384 in one chunk
+#: 20.37 ms, B 32,768 in one chunk 29.66 ms)
+LONE_CTA_SHARE = 0.69
+
+#: what a CTA costs beyond its columns, in 128-column sub-tiles: each wave
+#: of CTAs a split adds took ~0.17 ms more there (B 23,040 and B 131,072
+#: in 33 chunks: 24.32 and 136.81 ms).  With :data:`LONE_CTA_SHARE` it
+#: ranks colmerge_top2's splits at K 737,280 and B 22,912 as the card does
+#: (4 = 5 < 2 < 7 < 1 chunks: 3.19, 3.17, 3.25, 3.34, 3.63 ms)
+CTA_START_SUBS = 300
+
+#: most waves of CTAs a split of K past one wave may take (bounds the
+#: partial buffer)
+MAX_SPLIT_WAVES = 4
 
 #: the JAX package's single-chip tiling (``fqtk_tpu.runtime.demux``,
 #: ``_build_device_assign_fn``): the plan at this tiling picks the kernel
@@ -337,18 +354,39 @@ def plan_chunks(b: int, k: int, slots: int, max_cols: Optional[int] = None) -> T
     ``k`` columns across CTAs on a card that runs ``slots`` CTAs of
     :data:`ROWS_PER_CTA` rows at a time (:data:`CTAS_PER_SM` per SM).
 
-    One chunk wherever the row tiles fill the SMs; else as many chunks as
-    fill them once, each at least :data:`MIN_CHUNK_SUBS` sub-tiles of
-    :data:`K_ALIGN` columns (a small K is never split), and at least as many
-    as keep a chunk within ``max_cols`` columns.  ``cols_per_cta`` is a
-    multiple of :data:`K_ALIGN`; every chunk holds a column < k."""
+    At least the one-wave count: one chunk wherever the row tiles fill the
+    SMs, else as many chunks as fill them once, each at least
+    :data:`MIN_CHUNK_SUBS` sub-tiles of :data:`K_ALIGN` columns (a small K
+    is never split), and at least as many as keep a chunk within
+    ``max_cols`` columns.  Past that, K is split further where a model of
+    the card says it ends sooner: the ``row_tiles * n_chunks`` CTAs run in
+    waves of ``slots``; a last wave that leaves at most one CTA on each SM
+    costs :data:`LONE_CTA_SHARE` of a full one; a wave costs a chunk's
+    sub-tiles plus :data:`CTA_START_SUBS`.  So row tiles that leave much of
+    a wave empty (180 of 264 slots at B 23,040) split K into a few waves,
+    and row tiles that fill theirs (B 16,384, 32,768, 131,072) keep that
+    count; the split stops at :data:`MAX_SPLIT_WAVES` waves.
+    ``cols_per_cta`` is a multiple of :data:`K_ALIGN`; every chunk holds a
+    column < k."""
     n_sub = -(-k // K_ALIGN)
     row_tiles = max(1, -(-b // ROWS_PER_CTA))
-    want = min(max(1, slots // row_tiles), max(1, n_sub // MIN_CHUNK_SUBS))
+    sms = max(1, slots // CTAS_PER_SM)
+
+    def chunks(want: int) -> int:  # the count a split into ``want`` comes to
+        return -(-n_sub // -(-n_sub // want))
+
+    def cost(n: int) -> float:
+        waves, last = divmod(row_tiles * n, slots)
+        tail = 0 if last == 0 else LONE_CTA_SHARE if last <= sms else 1
+        return (waves + tail) * (-(-n_sub // n) + CTA_START_SUBS)
+
+    least = min(max(1, slots // row_tiles), max(1, n_sub // MIN_CHUNK_SUBS))
     if max_cols is not None:
-        want = max(want, -(-n_sub // (max_cols // K_ALIGN)))
-    subs_per = -(-n_sub // want)
-    return -(-n_sub // subs_per), subs_per * K_ALIGN
+        least = max(least, -(-n_sub // (max_cols // K_ALIGN)))
+    most = min(n_sub // MIN_CHUNK_SUBS, MAX_SPLIT_WAVES * slots // row_tiles)
+    n = min({chunks(w) for w in range(least, max(least, most) + 1)}, key=lambda n: (cost(n), n))
+    subs_per = -(-n_sub // n)
+    return n, subs_per * K_ALIGN
 
 
 def _check_obs(obs: torch.Tensor, length: int, classes: int = 4) -> Tuple[int, int]:

@@ -984,12 +984,23 @@ class DedupCounts:
 
 def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
     """Per-window dedup in front of the device matcher (counterpart of
-    ``fqtk_tpu.runtime.demux._wrap_window_dedup``, same policy): unique
-    packed rows go to the device once, padded to a power-of-two bucket with
-    copies of the first unique row, and results scatter back through the
+    ``fqtk_tpu.runtime.demux._wrap_window_dedup``): unique packed rows go
+    to the device once, padded with copies of the first unique row to a
+    bucket of at least 4096 rows, and results scatter back through the
     inverse map after the fetch — bit-exact, since identical packed rows
     score identically.  Engages for windows >= 4096 rows, packed width <= 8
-    bytes and >= 2x duplication.  ``FQTK_DEVICE_DEDUP=0`` disables.
+    bytes and >= 2x duplication, where the bucket is below the window.
+    ``FQTK_DEVICE_DEDUP=0`` disables.
+
+    The bucket's rounding differs from the JAX package's on purpose: there
+    a power of two keeps XLA to a few static shapes; here the Hopper
+    kernels take any B and work in CTAs of
+    :data:`~fqtk_tpu_torch.ops.hopper_matcher.ROWS_PER_CTA` rows, so the
+    bucket is the unique rows rounded up to that tile.  Both rules engage
+    on the same windows: with at most half the window unique, either
+    bucket is below the window exactly when 4096 is.  A batch mesh behind
+    it splits any B (``torch.tensor_split``), so the bucket need not
+    divide by the mesh's batch axis.
 
     It logs the first window it shrinks in each run: ``assign.start_run()``
     re-arms the line, since a cached matcher serves many runs.  It counts
@@ -1023,7 +1034,7 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
                     keys, return_index=True, return_inverse=True
                 )
             nu = len(uniq)
-            bucket = max(4096, 1 << max(0, (nu - 1).bit_length()))
+            bucket = max(4096, -(-nu // hm.ROWS_PER_CTA) * hm.ROWS_PER_CTA)
             counts.distinct += nu
             if nu <= b // 2 and bucket < b:
                 counts.engaged += 1

@@ -22,7 +22,8 @@ from fqtk_tpu.runtime import demux as jax_demux
 from fqtk_tpu_torch.io import native as native_io
 from fqtk_tpu_torch.ops import hopper_matcher as hm
 from fqtk_tpu_torch.ops.device_encoding import pack_bit2
-from fqtk_tpu_torch.ops.matcher import ExpectedSet
+from fqtk_tpu_torch.ops.matcher import ExpectedSet, assign_batch_np
+from fqtk_tpu_torch.parallel import mesh as mesh_mod
 from fqtk_tpu_torch.runtime import demux as demux_mod
 from fqtk_tpu_torch.runtime.demux import DemuxConfig, run_demux
 
@@ -233,9 +234,10 @@ def test_cache_key_distinguishes_same_shape_whitelists(monkeypatch, tmp_path):
 
 
 def test_window_dedup_wrapper_exact_and_bucketed(monkeypatch, caplog):
-    """_wrap_window_dedup: clustered windows shrink to a power-of-two bucket
-    of unique rows and scatter back exactly after the fetch; low-duplication
-    and small windows bypass; the log line comes once per run."""
+    """_wrap_window_dedup: clustered windows shrink to a bucket of unique
+    rows (at least 4096) and scatter back exactly after the fetch;
+    low-duplication and small windows bypass; the log line comes once per
+    run."""
     monkeypatch.delenv("FQTK_DEVICE_DEDUP", raising=False)
     calls = []
 
@@ -279,6 +281,83 @@ def test_window_dedup_wrapper_exact_and_bucketed(monkeypatch, caplog):
     monkeypatch.setenv("FQTK_DEVICE_DEDUP", "0")
     plain = demux_mod._wrap_window_dedup(fake_call)
     assert plain is fake_call
+
+
+def _window_of(rng, b, nu):
+    """``b`` packed 4-byte rows holding exactly ``nu`` distinct rows, each
+    at least once, in random order."""
+    keys = rng.choice(1 << 31, size=nu, replace=False).astype(np.uint32)
+    idx = np.concatenate([np.arange(nu), rng.integers(0, nu, size=b - nu)])
+    return keys[rng.permutation(idx)].view(np.uint8).reshape(b, 4)
+
+
+@pytest.mark.parametrize("b,nu", [
+    (131_072, 100), (131_072, 4_097), (131_072, 22_913), (131_072, 32_768),
+    (131_072, 65_536), (131_072, 65_537), (131_072, 100_000),
+    (8_192, 4_096), (8_192, 4_097), (10_001, 5_000), (4_096, 100),
+])
+def test_window_dedup_bucket_rule(monkeypatch, b, nu):
+    """The bucket of an engaged window is its distinct rows rounded up to
+    the kernels' 128-row tile, at least 4096; the dedup engages on exactly
+    the windows the power-of-two bucket engaged on (at most half the
+    window distinct, the bucket below it); results scatter back exactly."""
+    monkeypatch.delenv("FQTK_DEVICE_DEDUP", raising=False)
+    calls = []
+
+    def fake_call(obs):
+        obs = np.asarray(obs)
+        calls.append(obs.shape[0])
+        # fake matcher: "assignment" = the whole packed row
+        return demux_mod._Pending(torch.from_numpy(obs.view(np.int32).reshape(-1)), keep=obs)
+
+    assign = demux_mod._wrap_window_dedup(fake_call)
+    rows = _window_of(np.random.default_rng(b + nu), b, nu)
+    out = assign(rows).fetch()
+    np.testing.assert_array_equal(out, rows.view(np.int32).reshape(-1))
+    tile = hm.ROWS_PER_CTA
+    bucket = max(4096, -(-nu // tile) * tile)
+    power_of_two = max(4096, 1 << (nu - 1).bit_length())
+    engaged = nu <= b // 2 and bucket < b
+    assert engaged == (nu <= b // 2 and power_of_two < b)
+    assert (assign.dedup.engaged, assign.dedup.declined) == (int(engaged), int(not engaged))
+    assert assign.dedup.distinct == nu
+    assert calls == [bucket if engaged else b]
+    assert bucket % tile == 0 and bucket <= power_of_two
+
+
+def test_window_dedup_before_a_batch_mesh():
+    """A 3 x 1 batch mesh behind the window dedup takes a bucket that is
+    not a multiple of 3 (4,352 rows for 4,300 distinct) and gives the
+    spec's assignments for every row of the window."""
+    rng = np.random.default_rng(7)
+    barcodes = _barcodes(23, 9, seed=7)
+    expected = ExpectedSet.from_barcodes(barcodes)
+    fn = mesh_mod.make_sharded_assign_fn(
+        expected, 1, 2, mesh_mod.make_demux_mesh(3, 1, devices=[torch.device("cpu")] * 3),
+        packed2=True, compact_output=True, with_counts=False, use_kernels=True)
+    # the barcodes, each with one substitution, then random rows
+    exact = np.frombuffer("".join(barcodes).encode(), dtype=np.uint8).reshape(-1, 9)
+    near = np.repeat(exact, 9, axis=0)
+    pos = np.tile(np.arange(9), len(exact))
+    near[np.arange(len(near)), pos] = rng.choice(ACGT, size=len(near))
+    cand = np.concatenate([exact, near, rng.choice(ACGT, size=(8000, 9)).astype(np.uint8)])
+    _, first = np.unique(cand, axis=0, return_index=True)
+    distinct = cand[np.sort(first)][:4300]
+    assert len(distinct) == 4300
+    obs = distinct[np.concatenate([np.arange(4300), rng.integers(0, 4300, size=9000 - 4300)])]
+    calls = []
+
+    def counted(rows):
+        calls.append(len(rows))
+        return fn(rows)
+
+    assign = demux_mod._window_side(fn, counted)
+    got = assign(pack_bit2(obs)).fetch()
+    idx, _, _ = assign_batch_np(obs, expected, 1, 2)
+    np.testing.assert_array_equal(got, np.where(idx < 0, len(barcodes), idx))
+    assert calls == [4352] and 4352 % 3 != 0
+    assert (got < len(barcodes)).sum() >= 23
+    assert assign.dedup.engaged == 1
 
 
 # --------------------------------------------------------------------------

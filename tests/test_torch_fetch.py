@@ -235,3 +235,40 @@ def test_fetch_does_not_wait_on_the_next_window_on_card():
         np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got0, kept0)
     assert (fetches.fetch_async - async0, fetches.fetch_waited - waited0) == (3, 1)
+
+
+@pytest.mark.gpu
+def test_window_buckets_reuse_memory_on_card():
+    """Windows of 131,072 rows whose distinct counts change from window to
+    window (so does the dedup's bucket, a multiple of 128 rows): once each
+    size has been seen, a second pass in another order creates no device
+    memory and no pinned host memory, and every window's result equals the
+    matcher's on the whole window."""
+    _need_card()
+    b = 131_072
+    assign, _ = _device_side(300, "cuda", b)
+    matcher = assign.device_matcher
+    rng = np.random.default_rng(41)
+    windows = []
+    for nu in (22_800, 22_913, 23_050, 23_170, 4_300, 30_000, 65_536):
+        pool = ACGT[rng.integers(0, 4, size=(nu, L))]
+        rows = pool[np.concatenate([np.arange(nu), rng.integers(0, nu, size=b - nu)])]
+        windows.append(pack_bit2(rows))
+    engaged0 = assign.dedup.engaged
+    for w in windows:
+        assign(w).fetch()
+    torch.cuda.synchronize()
+    assert assign.dedup.engaged - engaged0 == len(windows)
+
+    def created():
+        device = torch.cuda.memory_stats()
+        host = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+        return (device.get("num_device_alloc", device["segment.all.allocated"]),
+                host.get("num_host_alloc", 0))
+
+    before = created()
+    for i in rng.permutation(len(windows)).tolist() * 2:
+        got = assign(windows[i]).fetch()
+    torch.cuda.synchronize()
+    assert created() == before
+    np.testing.assert_array_equal(got, matcher(windows[i])[0].cpu().numpy())

@@ -329,6 +329,18 @@ def jnp_free_counts(obs, es):
     (100, 20_000_000, 264, 1 << 23, (264, 75776)),
     (100, 20_000_000, 1, 1 << 23, (3, 6666752)),
     (1, 1, 264, None, (1, 128)),
+    # row tiles that fill a wave only in part (the window dedup's buckets):
+    # split past one wave, at most MAX_SPLIT_WAVES (4096 rows at K 40M: 4)
+    (23_040, 6794880, 264, 1 << 23, (5, 1358976)),
+    (22_912, 737280, 264, None, (4, 184320)),
+    (23_040, 3397440, 264, None, (5, 679552)),
+    (38_400, 6794880, 264, 1 << 23, (3, 2264960)),
+    (8192, 40_000_000, 264, 1 << 23, (8, 5000064)),
+    (4096, 40_000_000, 264, 1 << 23, (33, 1212160)),
+    (65_536, 6794880, 264, 1 << 23, (1, 6794880)),
+    # never fewer than the one-wave count: a small K keeps it
+    (8192, 8192, 264, None, (4, 2048)),
+    (23_040, 8192, 264, None, (1, 8192)),
 ])
 def test_plan_chunks(b, k, slots, max_cols, want):
     got = hm.plan_chunks(b, k, slots, max_cols)
@@ -342,11 +354,13 @@ def test_plan_chunks(b, k, slots, max_cols, want):
 @pytest.mark.parametrize("b", [1, 8192, 131_072, 1 << 20, 1 << 22])
 def test_partial_buffer_is_bounded(b, k):
     """The ``[2, n_chunks, B]`` int32 partials of a launch need no row
-    chunking: K is split only as far as the CTAs fill the card once (then
-    the buffer is about 1 KiB per CTA slot whatever B), or, for
-    ``tile_top2``, into ceil(K / 2^23) tiles (8 bytes per row and tile: less
-    than the 12 bytes per row of the outputs up to K = 2^23)."""
+    chunking: K is split as far as the CTAs fill the card once, further
+    only up to :data:`~hm.MAX_SPLIT_WAVES` waves of the card's slots (then
+    the buffer is about 1 KiB per CTA slot and wave whatever B), or, for
+    ``tile_top2``, into ceil(K / 2^23) tiles (8 bytes per row and tile:
+    less than the 12 bytes per row of the outputs up to K = 2^23)."""
     slots = 264
+    waves = hm.MAX_SPLIT_WAVES
     for max_cols in (None, hm.MAX_TILE_COLS):
         if max_cols is None and k > hm.MAX_K:
             continue
@@ -354,7 +368,7 @@ def test_partial_buffer_is_bounded(b, k):
         row_tiles = -(-b // hm.ROWS_PER_CTA)
         k_tiles = 1 if max_cols is None else -(-k // max_cols)
         partial_bytes = 2 * n_chunks * b * 4
-        assert n_chunks <= max(slots // row_tiles, k_tiles, 1)
-        assert partial_bytes <= 1024 * max(slots, row_tiles * k_tiles)
+        assert n_chunks <= max(waves * slots // row_tiles, k_tiles, 1)
+        assert partial_bytes <= 1024 * max(waves * slots, row_tiles * k_tiles)
         if k <= 1 << 23:  # every list the demux path knows: at most the outputs' size
-            assert partial_bytes <= max(1024 * slots, 8 * b)
+            assert partial_bytes <= max(1024 * waves * slots, 8 * b)

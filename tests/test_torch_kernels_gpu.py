@@ -127,6 +127,41 @@ def test_tile_top2_matches_plain_on_card(k, length, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [22_912, 23_040])
+@pytest.mark.parametrize("kernel,k", [("colmerge_top2", 737_280), ("tile_top2", 6_794_880)])
+def test_window_bucket_rows_on_card(kernel, k, b):
+    """Each kernel at its single-cell whitelist's K on bit2 rows, at the
+    window dedup's buckets (a multiple of 128 rows, not a power of two):
+    row tiles that fill a wave of CTAs only in part, so K is split, equal
+    to the plain version."""
+    _need_card()
+    rng = np.random.default_rng(b + k)
+    length = 16
+    codes = rng.integers(0, 4, size=(k, length), dtype=np.uint8)
+    es = ExpectedSet(masks=np.left_shift(1, codes).astype(np.uint8), max_ns_in_barcodes=0,
+                     length=length, count=k)
+    reads = codes[rng.integers(0, k, size=b)]
+    hit = rng.random(b) < 0.3
+    reads[hit, rng.integers(0, length, size=int(hit.sum()))] = rng.integers(
+        0, 4, size=int(hit.sum()), dtype=np.uint8)
+    miss = rng.random(b) < 0.2
+    reads[miss] = rng.integers(0, 4, size=(int(miss.sum()), length), dtype=np.uint8)
+    packed = torch.from_numpy(pack_bit2(ACGT[reads])).cuda()
+    state = hm.hopper_state_from_numpy(es, "cuda", kernel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_cols = hm.MAX_TILE_COLS if kernel == "tile_top2" else None
+    assert hm.plan_chunks(b, k, 2 * sms, max_cols)[0] > 1
+    kern = hm.ColmergeTop2() if kernel == "colmerge_top2" else hm.TileTop2()
+    got = kern(packed, state.table, k, length)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and kern.plain_calls == 0
+    want = kern.reference(packed, state.table, k, length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] == 0).sum()) >= b // 3
+
+
+@pytest.mark.gpu
 def test_tile_top2_cross_tile_ties_on_card():
     """Duplicates in different K tiles (204 rows: the launch splits K into
     12 tiles of 2,048 columns): the first index wins, and the ragged last
