@@ -967,10 +967,12 @@ def _window_side(fn, call: Callable[[np.ndarray], torch.Tensor]):
 @dataclass
 class DedupCounts:
     """Cumulative counts of one window dedup (``assign.dedup``): windows
-    seen, windows where it engaged or declined after its ``np.unique``,
-    rows in, distinct rows of the windows it examined, rows sent to the
-    device matcher (the bucket where it engaged, every row otherwise), and
-    the distinct rows and buckets of the windows where it engaged."""
+    seen, windows where it engaged or declined after finding their distinct
+    rows, rows in, distinct rows of the windows it examined, rows sent to
+    the device matcher (the bucket where it engaged, every row otherwise),
+    the distinct rows and buckets of the windows where it engaged, and the
+    examined windows whose keys went through the packed sort
+    (:func:`_sort_packed`; the others through ``np.unique``)."""
 
     windows: int = 0
     engaged: int = 0
@@ -980,6 +982,37 @@ class DedupCounts:
     rows_sent: int = 0
     engaged_distinct: int = 0
     engaged_sent: int = 0
+    sorted: int = 0
+
+
+def _sort_packed(keys: np.ndarray, rb: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A window's keys packed above their row indices, one uint64 word
+    ``key << rb | row`` each, and sorted; and the heads, where a word's key
+    differs from the one before.  Needs ``len(keys) <= 2 ** rb`` and every
+    key below ``2 ** (64 - rb)``.  The row breaks ties, so the heads are
+    the distinct keys in ascending order, each at its first row: what
+    ``np.unique(keys, return_index=True)`` gives (:func:`_unpack_unique`)."""
+    words = keys.astype(np.uint64)
+    words <<= rb
+    words |= np.arange(len(words), dtype=np.uint64)
+    words.sort()
+    sorted_keys = words >> rb
+    heads = np.empty(len(words), dtype=bool)
+    heads[0] = True
+    np.not_equal(sorted_keys[1:], sorted_keys[:-1], out=heads[1:])
+    return words, heads
+
+
+def _unpack_unique(words: np.ndarray, heads: np.ndarray, rb: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct keys and the inverse map (each row's place among them,
+    ``intp``) of :func:`_sort_packed`'s words and heads: what
+    ``np.unique(keys, return_inverse=True)`` gives."""
+    inv = np.empty(len(words), dtype=np.intp)
+    places = np.cumsum(heads, dtype=np.intp)
+    places -= 1
+    inv[(words & np.uint64((1 << rb) - 1)).view(np.intp)] = places
+    return words[heads] >> rb, inv
 
 
 def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
@@ -991,6 +1024,14 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
     score identically.  Engages for windows >= 4096 rows, packed width <= 8
     bytes and >= 2x duplication, where the bucket is below the window.
     ``FQTK_DEVICE_DEDUP=0`` disables.
+
+    Each row's ``w`` bytes are a little-endian key.  Where the key and the
+    row index fit one 64-bit word (``8 * w`` plus the index's bits: at
+    131,072 rows up to 5 bytes, bit2 rows of up to 20 bp), one sort of
+    packed words finds the distinct keys (:func:`_sort_packed`), and the
+    inverse is built only for a window that engages; wider rows go through
+    ``np.unique``.  Both give the same distinct keys and inverse.  The
+    distinct rows sent are the distinct keys' first ``w`` bytes.
 
     The bucket's rounding differs from the JAX package's on purpose: there
     a power of two keeps XLA to a few static shapes; here the Hopper
@@ -1022,31 +1063,38 @@ def _wrap_window_dedup(call: Callable[[np.ndarray], _Pending]):
         counts.rows_in += b
         pending = None
         if b >= 4096 and w <= 8:
+            rb = max(1, (b - 1).bit_length())
             with TRACER.span("fqtk.dedup.unique"):
                 obs = np.ascontiguousarray(obs)
                 if w in (1, 2, 4, 8):
-                    keys = obs.view(f"u{w}").reshape(b)
+                    keys = obs.view(f"<u{w}").reshape(b)
                 else:
                     full = np.zeros((b, 8), dtype=np.uint8)
                     full[:, :w] = obs
-                    keys = full.view(np.uint64).reshape(b)
-                uniq, first_idx, inv = np.unique(
-                    keys, return_index=True, return_inverse=True
-                )
-            nu = len(uniq)
-            bucket = max(4096, -(-nu // hm.ROWS_PER_CTA) * hm.ROWS_PER_CTA)
+                    keys = full.view("<u8").reshape(b)
+                packed = 8 * w + rb <= 64
+                if packed:
+                    counts.sorted += 1
+                    words, heads = _sort_packed(keys, rb)
+                    nu = int(np.count_nonzero(heads))
+                else:
+                    uniq, inv = np.unique(keys, return_inverse=True)
+                    nu = len(uniq)
+                bucket = max(4096, -(-nu // hm.ROWS_PER_CTA) * hm.ROWS_PER_CTA)
+                engaged = nu <= b // 2 and bucket < b
+                if engaged and packed:
+                    uniq, inv = _unpack_unique(words, heads, rb)
             counts.distinct += nu
-            if nu <= b // 2 and bucket < b:
+            if engaged:
                 counts.engaged += 1
                 counts.engaged_distinct += nu
                 counts.engaged_sent += bucket
                 with TRACER.span("fqtk.dedup.gather"):
-                    rows = obs[first_idx]
-                    if bucket > nu:
-                        rows = np.concatenate(
-                            [rows, np.broadcast_to(rows[:1], (bucket - nu, w))]
-                        )
-                    rows = np.ascontiguousarray(rows)
+                    # a fresh array: the last window's may still be in flight
+                    rows = np.empty((bucket, w), dtype=np.uint8)
+                    key_bytes = uniq.astype("<u8", copy=False).view(np.uint8)
+                    rows[:nu] = key_bytes.reshape(nu, 8)[:, :w]
+                    rows[nu:] = rows[0]
                 if not logged:
                     logged = True
                     logger.info(
@@ -1468,10 +1516,11 @@ def _log_counts(stats: Dict[str, Union[int, str]]) -> None:
         )
     if "dedup_windows" in stats:
         logger.info(
-            "window dedup: %d windows (%d engaged, %d declined), %d rows in, "
-            "%d distinct, %d sent",
+            "window dedup: %d windows (%d engaged, %d declined), %d through the "
+            "packed sort, %d rows in, %d distinct, %d sent",
             *(stats[f"dedup_{k}"] for k in (
-                "windows", "engaged", "declined", "rows_in", "distinct", "rows_sent")),
+                "windows", "engaged", "declined", "sorted", "rows_in", "distinct",
+                "rows_sent")),
         )
     if "fetch_async" in stats:
         logger.info(

@@ -20,8 +20,10 @@
 Span names (``fqtk.`` + layer + part):
 
 ======================= ======================================================
-``fqtk.dedup.unique``   the window dedup's key build and ``np.unique``
-``fqtk.dedup.gather``   the distinct rows gathered and padded to the bucket
+``fqtk.dedup.unique``   the window dedup's key build, the sort that finds the
+                        distinct keys (packed, or ``np.unique`` for wide
+                        rows) and, where it engages, the inverse map
+``fqtk.dedup.gather``   the distinct rows written to the bucket and padded
 ``fqtk.matcher``        the device matcher's call, whatever the route
 ``fqtk.matcher.h2d``    ``HopperAssignFn``: rows to the device
 ``fqtk.matcher.launch`` ``HopperAssignFn``: the kernel's top-2

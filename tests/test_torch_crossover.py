@@ -325,6 +325,83 @@ def test_window_dedup_bucket_rule(monkeypatch, b, nu):
     assert bucket % tile == 0 and bucket <= power_of_two
 
 
+def _distinct_rows(rng, nu, w):
+    """``nu`` distinct rows of ``w`` bytes in random order; with room for
+    them, the rows of all ones and all zeros come first, so the largest and
+    the smallest key are in the window."""
+    if 256 ** w <= 4 * nu:
+        keys = rng.permutation(256 ** w)[:nu].astype("<u8")
+        return keys.view(np.uint8).reshape(nu, 8)[:, :w].copy()
+    cand = np.concatenate([
+        np.full((1, w), 255, dtype=np.uint8), np.zeros((1, w), dtype=np.uint8),
+        rng.integers(0, 256, size=(2 * nu + 64, w), dtype=np.uint8)])
+    _, first = np.unique(cand, axis=0, return_index=True)
+    return cand[np.sort(first)[:nu]]
+
+
+#: a window's distinct rows as a share of its rows, from none alike to
+#: heavy duplication; a width's own limit caps it (256 rows at 1 byte)
+DUPLICATION = {"none": 1.0, "half": 0.5, "cells8k": 22_913 / 131_072, "heavy": 0.0}
+
+
+@pytest.mark.parametrize("dup", list(DUPLICATION))
+@pytest.mark.parametrize("b", [4_096, 8_192, 10_001, 131_072])
+@pytest.mark.parametrize("w", range(1, 9))
+def test_window_dedup_packed_sort(monkeypatch, w, b, dup):
+    """Where a row's key and index fit one 64-bit word (``8 * w + rb <=
+    64``), the packed sort gives ``np.unique``'s distinct keys, first rows
+    and inverse; wider windows go through ``np.unique``.  Either way the
+    wrapper sends the distinct rows as gathered from the window at
+    ``np.unique``'s first rows, padded with the first, and hands out the
+    wrapped matcher's result, byte for byte."""
+    monkeypatch.delenv("FQTK_DEVICE_DEDUP", raising=False)
+    rng = np.random.default_rng(w * 1_000_003 + b)
+    nu = min(max(100, int(b * DUPLICATION[dup])), b, 256 ** w)
+    distinct = _distinct_rows(rng, nu, w)
+    rows = distinct[rng.permutation(np.concatenate(
+        [np.arange(nu), rng.integers(0, nu, size=b - nu)]))]
+    full = np.zeros((b, 8), dtype=np.uint8)
+    full[:, :w] = rows
+    keys = full.view("<u8").reshape(b)
+    uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    rb = max(1, (b - 1).bit_length())
+    packed = 8 * w + rb <= 64
+    if packed:
+        words, heads = demux_mod._sort_packed(keys, rb)
+        assert np.count_nonzero(heads) == nu
+        np.testing.assert_array_equal(words[heads] & np.uint64((1 << rb) - 1), first)
+        got_uniq, got_inv = demux_mod._unpack_unique(words, heads, rb)
+        np.testing.assert_array_equal(got_uniq, uniq)
+        assert got_inv.dtype == np.intp
+        np.testing.assert_array_equal(got_inv, inv.reshape(b))
+
+    sent = []
+
+    def fake_call(obs):
+        obs = np.asarray(obs)
+        sent.append(obs.copy())
+        # fake matcher: "assignment" = the whole row, zero-padded to 8 bytes
+        out = np.zeros((len(obs), 8), dtype=np.uint8)
+        out[:, :obs.shape[1]] = obs
+        return demux_mod._Pending(torch.from_numpy(out.view(np.int64).reshape(-1)), keep=obs)
+
+    assign = demux_mod._wrap_window_dedup(fake_call)
+    got = assign(rows).fetch()
+    want = fake_call(rows).fetch()
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    bucket = max(4096, -(-nu // hm.ROWS_PER_CTA) * hm.ROWS_PER_CTA)
+    engaged = nu <= b // 2 and bucket < b
+    if engaged:
+        gathered = rows[first]
+        gathered = np.concatenate([gathered, np.broadcast_to(gathered[:1], (bucket - nu, w))])
+        assert sent[0].shape == (bucket, w) and sent[0].tobytes() == gathered.tobytes()
+    else:
+        assert sent[0].tobytes() == rows.tobytes()
+    d = assign.dedup
+    assert (d.windows, d.engaged, d.declined, d.distinct) == (1, int(engaged), int(not engaged), nu)
+    assert d.sorted == int(packed)
+
+
 def test_window_dedup_before_a_batch_mesh():
     """A 3 x 1 batch mesh behind the window dedup takes a bucket that is
     not a multiple of 3 (4,352 rows for 4,300 distinct) and gives the

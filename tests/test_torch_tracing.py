@@ -162,6 +162,8 @@ def test_counters_match_a_hand_computed_dedup(side):
         # the engaged window's bucket (4,096 at least), every row of the others
         "dedup_rows_sent": 4096 + 8192 + 1000,
         "dedup_engaged_distinct": counts[0], "dedup_engaged_sent": 4096,
+        # both examined windows: 4-byte keys and 13 bits of row fit one word
+        "dedup_sorted": 2,
     }
     # the session's record reads the same counts over its windows
     rec = TRACER.program_record()
@@ -353,6 +355,7 @@ def test_demux_reports_dedup_counts_and_traces_its_stages(tmp_path, monkeypatch,
     assert m["dedup_rows_in"] == 20_000 and m["dedup_distinct"] <= 2 * 24
     assert m["dedup_rows_sent"] == 2 * 4096 + 3616
     assert "window dedup: 3 windows (2 engaged, 0 declined)" in caplog.text
+    assert m["dedup_sorted"] == 2 and "), 2 through the packed sort," in caplog.text
     # results on the CPU take no pinned copy
     assert m["fetch_async"] == 0 and m["fetch_waited"] == 0
     assert "window fetch: 0 from pinned copies, 0 of them waited" in caplog.text
