@@ -31,7 +31,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.encoding import ENCODE_LUT, NOCALL_LUT, count_nocalls
+from ..core.encoding import ENCODE_LUT, NOCALL_LUT
 from ..io.native import NativeBigKMatcher, NativeDemuxError
 from ..utils.profiling import TRACER
 from .device_encoding import byte_is_nocall, byte_to_mask, unpack_bit2, unpack_nib4
@@ -81,12 +81,13 @@ class ExpectedSet:
             with span("fqtk.setup.expected.lengths"):
                 if any(len(b) != length for b in upper):
                     raise ValueError("All barcodes must have the same length")
-            with span("fqtk.setup.expected.nocalls"):
-                max_ns = max(count_nocalls(b) for b in upper)
             with span("fqtk.setup.expected.masks"):
                 arr = np.frombuffer(b"".join(upper), dtype=np.uint8).reshape(
                     len(upper), length)
                 masks = ENCODE_LUT[arr]  # [K, L]
+            with span("fqtk.setup.expected.nocalls"):
+                # one pass over [K, L], not one array per barcode
+                max_ns = int(NOCALL_LUT[arr].sum(axis=1, dtype=np.int64).max())
         return cls(
             masks=masks,
             max_ns_in_barcodes=max_ns,

@@ -179,14 +179,44 @@ def _random_barcodes(rng, k, length, iupac=True):
     return [bytes(r).decode() for r in alphabet[rng.integers(0, len(alphabet), size=(k, length))]]
 
 
-@pytest.mark.parametrize("k,length", [(1, 1), (3, 8), (96, 17), (300, 33)])
-def test_expected_set_and_numpy_spec(k, length):
+def _nocall_barcodes(rng, kind, length):
+    """No-call-heavy whitelists over ACGT rows: ``every`` has ``N``, ``n``
+    and ``.`` at every position, ``all_n`` one all-``N`` row in the middle,
+    ``most_last`` rows with 0..L no-calls, the most of them in the last."""
+    n_rows = {"every": 3 * length, "all_n": 8, "most_last": length + 1}[kind]
+    rows = ACGT[rng.integers(0, 4, size=(n_rows, length))]
+    if kind == "every":
+        for i, c in enumerate(b"Nn."):
+            rows[i * length + np.arange(length), np.arange(length)] = c
+    elif kind == "all_n":
+        rows[n_rows // 2] = ord("N")
+    else:
+        for i in range(n_rows):
+            rows[i, rng.permutation(length)[:i]] = b"Nn."[i % 3]
+    return [bytes(r).decode() for r in rows]
+
+
+SPEC_CASES = [pytest.param(k, n, None, id=f"{k}-{n}")
+              for k, n in [(1, 1), (3, 8), (96, 17), (300, 33)]] + [
+    pytest.param(0, n, kind, id=f"{kind}-{n}")
+    for kind in ("every", "all_n", "most_last") for n in (1, 16, 300)]
+
+
+@pytest.mark.parametrize("k,length,nocalls", SPEC_CASES)
+def test_expected_set_and_numpy_spec(k, length, nocalls):
     rng = np.random.default_rng(k * 1000 + length)
-    barcodes = _random_barcodes(rng, k, length)
+    if nocalls is None:
+        barcodes = _random_barcodes(rng, k, length)
+    else:
+        barcodes = _nocall_barcodes(rng, nocalls, length)
+        k = len(barcodes)
     ours = port_matcher.ExpectedSet.from_barcodes(barcodes)
     theirs = jax_matcher.ExpectedSet.from_barcodes(barcodes)
     assert (ours.count, ours.length, ours.max_ns_in_barcodes) == (
         theirs.count, theirs.length, theirs.max_ns_in_barcodes)
+    assert type(ours.max_ns_in_barcodes) is int
+    if nocalls is not None:
+        assert ours.max_ns_in_barcodes == (1 if nocalls == "every" else length)
     np.testing.assert_array_equal(ours.masks, theirs.masks)
     np.testing.assert_array_equal(ours.compat, theirs.compat)
     obs = np.frombuffer(b"ACGTN.acgtnRY", dtype=np.uint8)[rng.integers(0, 13, size=(200, length))]
@@ -207,6 +237,28 @@ def test_expected_set_and_numpy_spec(k, length):
     for call in (port_matcher.ExpectedSet.from_barcodes, jax_matcher.ExpectedSet.from_barcodes):
         with pytest.raises(ValueError, match="same length"):
             call(["ACG", "AC"])
+
+
+@pytest.mark.parametrize("barcodes,raises", [
+    ([], ValueError), (["ACG", ""], ValueError), (["ACG", "AC"], ValueError),
+    (["ACé"], UnicodeEncodeError), (["ACß", "ACGT"], None),
+], ids=["none", "empty", "lengths", "non_ascii", "upper_grows"])
+def test_expected_set_errors(barcodes, raises):
+    """Both sides raise the same exception and message, or both accept
+    (``"ACß".upper()`` is ``"ACSS"``) and agree."""
+    outcomes = []
+    for cls in (port_matcher.ExpectedSet, jax_matcher.ExpectedSet):
+        try:
+            outcomes.append(cls.from_barcodes(barcodes))
+        except Exception as e:
+            outcomes.append((type(e), str(e)))
+    ours, theirs = outcomes
+    if raises is not None:
+        assert theirs[0] is raises and ours == theirs
+    else:
+        assert (ours.count, ours.length, ours.max_ns_in_barcodes) == (
+            theirs.count, theirs.length, theirs.max_ns_in_barcodes)
+        np.testing.assert_array_equal(ours.masks, theirs.masks)
 
 
 PLAN_KS = [1, 96, 8_192, 737_280, 4_194_304, 4_194_305, 6_794_880, 100_000_000]
